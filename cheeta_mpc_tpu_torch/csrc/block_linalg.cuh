@@ -56,10 +56,58 @@ __device__ __forceinline__ float pdot(const float* M, int stride,
   return a;
 }
 
+// The same against the vector v + w, summed element by element first.
+__device__ __forceinline__ float pdot2(const float* M, int stride,
+                                       const float* v, const float* w, int n,
+                                       int sub) {
+  float a = 0.f;
+  for (int l = sub; l < n; l += kTpo)
+    a = fmaf(M[(size_t)l * stride], v[l] + w[l], a);
+  return a;
+}
+
+struct NoOp {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Asynchronous copies global -> shared (cp.async, 4 bytes each, through
+// L1): a thread issues its share and goes on; cp_async_wait_all() before a
+// barrier makes every copy that the block issued visible after it.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Copy groups: a pass that streams its stages commits one group per stage
+// and waits until at most `pending` (0 or 1) of its newest groups are still
+// in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+struct WaitCopies {
+  int pending;
+  __device__ __forceinline__ void operator()() const { cp_async_wait(pending); }
+};
+// The block copies n floats from src (global) to dst (shared).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
+}
+
 // n_out outputs, each the sum over kTpo threads of part(o, sub); epi(o, sum)
-// runs in one thread per output. Ends with a barrier.
-template <class Part, class Epi>
-__device__ __forceinline__ void rows(int n_out, Part part, Epi epi) {
+// runs in one thread per output. Ends with a barrier; pre() runs in every
+// thread just before it.
+template <class Part, class Epi, class Pre = NoOp>
+__device__ __forceinline__ void rows(int n_out, Part part, Epi epi,
+                                     Pre pre = Pre()) {
   const int sub = threadIdx.x & (kTpo - 1);
   const int grp = threadIdx.x / kTpo, ngrp = blockDim.x / kTpo;
   for (int o0 = 0; o0 < n_out; o0 += ngrp) {
@@ -70,6 +118,7 @@ __device__ __forceinline__ void rows(int n_out, Part part, Epi epi) {
       acc += __shfl_xor_sync(0xffffffffu, acc, s);
     if (valid && sub == 0) epi(o, acc);
   }
+  pre();
   __syncthreads();
 }
 

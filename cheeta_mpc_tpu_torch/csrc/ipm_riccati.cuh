@@ -11,30 +11,48 @@
 // ops/pallas_ipm_riccati.py::_ipm_kernel and
 // ops/pallas_ipm_batch.py::_fleet_kernel of the JAX package.
 //
-// Memory plan. The iterate, slacks, duals, residuals and directions
-// (~18 arrays of (N+1) x ng, ~8 of (N+1) x nx) and the per-stage work
-// matrices live in dynamic shared memory for all iterations. The Riccati
-// factors (K, G^-1 or W, two rolling buffers of P, and H, Y Lam^-1, Lam^-1,
-// LiD with equalities) live in shared memory too when they fit, else in a
-// global scratch buffer that the caller provides; so does a copy of A and B
-// of all stages, which the stage-serial sweeps read. C and D of the stage
-// at hand are staged for the factorization's products; everything else of
-// the stage data (more than a block's shared memory at the centroidal
-// shape) is read from global memory / L2 where it is needed.
+// What sets the time: the solve is one chain of barrier phases (stage after
+// stage, iteration after iteration), so the design shortens the chain and
+// keeps loads off it.
+// - A stage's data (A, B, C, D, Q, R, S, the equality rows, and the Riccati
+//   factors when they live in global memory) is copied into shared memory
+//   by cp.async while an earlier stage computes: one stage ahead in the
+//   factorization, two in the short stages of the sweeps; the copies are
+//   waited for just before the barrier that ends a stage.
+// - SPD inverses keep their tableau in registers, take one barrier per
+//   pivot (the owners of the next pivot's row and column pass them on), and
+//   get their equilibration scales from the phase that forms the matrix.
+// - Passes over all stages split row products over lane groups and give
+//   column products one output per thread, so that a warp reads whole
+//   lines of global memory.
+// - The layout of shared memory comes with the launch parameters: its
+//   offsets are constant operands, not registers (the fleet kernel has 128).
+// - The Newton backward pass reads p_{k+1} + P_{k+1} rd_k where it is
+//   needed instead of forming it in a phase of its own; the corrector's
+//   right-hand sides are recomputed where they are read.
+// - Products run on register tiles, independent products of a phase side
+//   by side on disjoint threads; the small products of the equality
+//   elimination one output per thread.
+// - Code size counts: the kernel is one long sequence of different phases,
+//   so code that is fetched once per stage (an unrolled elimination, say)
+//   evicts the products' code from the instruction cache.
 //
-// What the time goes into: a thread runs its instructions in order, so a
-// loop of load, multiply-add, store pays a full memory latency per element
-// unless its loads can start early. Hence:
-// read-only inputs are __restrict__, products run on register tiles, sums
-// start from their global addends, pointers to shared memory are never
-// mixed with pointers to global memory in one variable, and the pivot loop
-// does no division.
+// Memory plan. The iterate, slacks, duals, directions, the rolling P and
+// the per-stage work matrices live in dynamic shared memory for all
+// iterations, beside the stage slots. The Riccati factors of all stages
+// (K, G^-1 or W, and H, Y Lam^-1, Lam^-1, LiD with equalities) live in
+// shared memory when they fit the block's share, else in a global scratch
+// buffer that the caller provides (kFacShared). Residuals the iteration
+// rebuilds (r_l, r_u and the complementarity right-hand sides) are not
+// stored: they are recomputed where they are read, with the same
+// operations.
 //
 // Arithmetic. Plain f32 FMA, no tensor cores, IEEE division and square
 // root (never build this with --use_fast_math): the barrier Hessian reaches
 // condition ~1/mu, and the guard relies on NaN comparing false. The SPD
 // inverse is the Jacobi-equilibrated Gauss-Jordan elimination with the
-// one-hot-shifted pivot column and no Newton refinement.
+// one-hot-shifted pivot column, the pivot row scaled by the pivot's
+// reciprocal, and no Newton refinement.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,14 +65,111 @@ namespace cheeta {
 constexpr int kNumIn = 18;
 constexpr int kNumOut = 11;
 
+// Section timers: the classes of barrier phase that a launch's cycles are
+// charged to, and the slot of the total. A timed launch writes, per block,
+// kNumPhaseSlots cycle counts (clock64 of thread 0).
+enum PhaseClass {
+  kPhInverse,      // SPD inverses
+  kPhProducts,     // the factorization's matrix products
+  kPhSweeps,       // stage-serial mat-vec passes (Newton, stationarity)
+  kPhGradients,    // cost gradients of all stages at once
+  kPhBulk,         // other mat-vecs over all stages (residuals, C d)
+  kPhStage,        // waiting for a stage's data in shared memory
+  kPhElementwise,  // elementwise updates and block reductions
+  kNumPhases
+};
+constexpr int kNumPhaseSlots = kNumPhases + 1;  // + the whole kernel
+
 struct IpmDims {
   int N, nx, nu, ng, nc, iters;
-  int ab;  // 1: A and B of all stages are kept in shared memory
 };
 
 struct IpmParams {
   float tau, mu0, s0_min, reg, eps, w_max, mu_tol;
 };
+
+// Offsets (in floats) of every shared-memory array; the host uses the same
+// function to size the launch.
+struct Layout {
+  int sl, su, ll, lu, dsl, dsu, dll, dlu, g, ln, w, m, lg, ug;  // (N+1) ng
+  int dx, ddx, p, qb, cs, xt, prd, rd;     // (N+1) * nx each
+  int du, ddu, kv, rb, ut;                 // N * nu each
+  int re;                                  // N * nc
+  int rx0, rhs, tu, nuv, nu0;              // nx, nu, nu, nc, nc
+  int P0, P1;                              // P_{k+1} and P_k, rolled
+  int PA, PB, G, Hk, Gt, Kw, Ww;           // per-stage work
+  int sv, rowb, colb;                      // the inverse's pivot buffers
+  int Y, T, T2, Lam, Liw, YLiw;            // equality work (nc > 0)
+  int red;                                 // 32
+  int slot, slot_size;                     // 2 x slot_size for stage data
+  int total_vec;
+  int fK, fGi, fH, fYLi, fLi, fLiD;        // relative to the factor base
+  int total_fac;
+};
+
+#define CHEETA_TAKE(field, n) \
+  do {                       \
+    L.field = o;             \
+    o += (n);                \
+  } while (0)
+
+// fac_shared: the factors stay in shared memory. Otherwise the stage slots
+// also carry the factors that the sweeps read, and the factorization keeps
+// work copies of K, W, Y Lam^-1 (its products read those, never the
+// global store).
+inline Layout make_layout(const IpmDims& d, bool fac_shared) {
+  Layout L;
+  const int N = d.N, N1 = d.N + 1, nx = d.nx, nu = d.nu, ng = d.ng,
+            nc = d.nc;
+  const int gl = fac_shared ? 0 : 1;
+  int o = 0;
+  CHEETA_TAKE(sl, N1 * ng); CHEETA_TAKE(su, N1 * ng); CHEETA_TAKE(ll, N1 * ng);
+  CHEETA_TAKE(lu, N1 * ng); CHEETA_TAKE(dsl, N1 * ng); CHEETA_TAKE(dsu, N1 * ng);
+  CHEETA_TAKE(dll, N1 * ng); CHEETA_TAKE(dlu, N1 * ng); CHEETA_TAKE(g, N1 * ng);
+  CHEETA_TAKE(ln, N1 * ng); CHEETA_TAKE(w, N1 * ng); CHEETA_TAKE(m, N1 * ng);
+  CHEETA_TAKE(lg, N1 * ng); CHEETA_TAKE(ug, N1 * ng);
+  CHEETA_TAKE(dx, N1 * nx); CHEETA_TAKE(ddx, N1 * nx); CHEETA_TAKE(p, N1 * nx);
+  CHEETA_TAKE(qb, N1 * nx); CHEETA_TAKE(cs, N1 * nx); CHEETA_TAKE(xt, N1 * nx);
+  CHEETA_TAKE(prd, N1 * nx); CHEETA_TAKE(rd, N1 * nx);
+  CHEETA_TAKE(du, N * nu); CHEETA_TAKE(ddu, N * nu); CHEETA_TAKE(kv, N * nu);
+  CHEETA_TAKE(rb, N * nu); CHEETA_TAKE(ut, N * nu);
+  CHEETA_TAKE(re, N * nc);
+  CHEETA_TAKE(rx0, nx); CHEETA_TAKE(rhs, nu); CHEETA_TAKE(tu, nu);
+  CHEETA_TAKE(nuv, nc); CHEETA_TAKE(nu0, nc);
+  CHEETA_TAKE(P0, nx * nx); CHEETA_TAKE(P1, nx * nx);
+  const int nmax = nu > nc ? nu : nc;
+  CHEETA_TAKE(PA, nx * nx); CHEETA_TAKE(PB, nx * nu); CHEETA_TAKE(G, nu * nu);
+  CHEETA_TAKE(Hk, nu * nx); CHEETA_TAKE(Gt, nu * nu);
+  CHEETA_TAKE(Kw, gl * nu * nx); CHEETA_TAKE(Ww, nc ? gl * nu * nu : 0);
+  CHEETA_TAKE(Y, nu * nc); CHEETA_TAKE(T, nc * nx); CHEETA_TAKE(T2, nc * nx);
+  CHEETA_TAKE(Lam, nc * nc); CHEETA_TAKE(Liw, nc * nc);
+  CHEETA_TAKE(YLiw, gl * nu * nc);
+  CHEETA_TAKE(sv, nmax); CHEETA_TAKE(rowb, 2 * nmax); CHEETA_TAKE(colb, 2 * nmax);
+  CHEETA_TAKE(red, 32);
+  // A slot holds what one stage of any stage-serial pass reads.
+  const int ab = nx * nx + nx * nu;
+  int need = ab + ng * nx + ng * nu + nc * nx + nc * nu +  // factorization
+             nx * nx + nu * nu + nu * nx;
+  const int bwd = ab + nc * nx +
+                  gl * (nc ? nu * nu + nu * nx + nu * nc + nc * nc
+                           : nu * nx + nu * nu);          // Newton backward
+  const int fwd = ab + gl * nu * nx;                      // Newton forward
+  const int stat = ab + nc * nx + nc * nu + gl * nc * nu;  // stationarity
+  need = need > bwd ? need : bwd;
+  need = need > fwd ? need : fwd;
+  need = need > stat ? need : stat;
+  L.slot_size = need;
+  CHEETA_TAKE(slot, 2 * need);
+  L.total_vec = o;
+  o = 0;
+  CHEETA_TAKE(fK, N * nu * nx); CHEETA_TAKE(fGi, N * nu * nu);
+  CHEETA_TAKE(fH, nc ? N * nu * nx : 0); CHEETA_TAKE(fYLi, N * nu * nc);
+  CHEETA_TAKE(fLi, N * nc * nc); CHEETA_TAKE(fLiD, N * nc * nu);
+  L.total_fac = o;
+  return L;
+}
+
+#undef CHEETA_TAKE
 
 // Inputs:  A B b Q q R r S C D lg ug mask dx0 Ceq Deq eeq maskeq
 // Outputs: dx du s_l s_u lam_l lam_u diag K k P p   (K k P p may be null)
@@ -65,203 +180,181 @@ struct IpmArgs {
   long long out_stride[kNumOut];
   float* scratch;  // global factor storage, null = shared memory
   long long scratch_stride;
+  long long* timers;  // kNumPhaseSlots per block, null = untimed launch
   IpmDims d;
   IpmParams p;
+  Layout L;  // make_layout(d, scratch == null), filled in by the host
 };
-
-// Offsets (in floats) of every shared-memory array; the host uses the same
-// function to size the launch.
-struct Layout {
-  int sl, su, ll, lu, rl, ru, ln, w, rcl, rcu, dsl, dsu, dll, dlu, g, m, lg,
-      ug;                                  // (N+1) * ng each
-  int dx, ddx, p, qb, cs, xt, prd, rd;     // (N+1) * nx each
-  int du, ddu, kv, rb, ut;                 // N * nu each
-  int re;                                  // N * nc
-  int mvec, rx0, rhs, tu, nuv, nu0;        // nx, nx, nu, nu, nc, nc
-  int PA, PB, G, Hk, aug, sv, rowj, colj;  // per-stage work
-  int stg;                                 // C, D (A, B) of one stage
-  int Y, T, T2, Lam, Gt;                   // equality work (nc > 0)
-  int red;                                 // 32
-  int total_vec;
-  int fK, fGi, fP, fH, fYLi, fLi, fLiD;    // relative to the factor base
-  int total_fac;
-  int total_ab;                            // resident A, B (d.ab)
-};
-
-#define CHEETA_TAKE(field, n) \
-  do {                       \
-    L.field = o;             \
-    o += (n);                \
-  } while (0)
-
-__host__ __device__ inline Layout make_layout(const IpmDims& d) {
-  Layout L;
-  const int N = d.N, N1 = d.N + 1, nx = d.nx, nu = d.nu, ng = d.ng,
-            nc = d.nc;
-  const int nmax = nu > nc ? nu : nc;
-  int o = 0;
-  CHEETA_TAKE(sl, N1 * ng); CHEETA_TAKE(su, N1 * ng); CHEETA_TAKE(ll, N1 * ng);
-  CHEETA_TAKE(lu, N1 * ng); CHEETA_TAKE(rl, N1 * ng); CHEETA_TAKE(ru, N1 * ng);
-  CHEETA_TAKE(ln, N1 * ng); CHEETA_TAKE(w, N1 * ng); CHEETA_TAKE(rcl, N1 * ng);
-  CHEETA_TAKE(rcu, N1 * ng); CHEETA_TAKE(dsl, N1 * ng); CHEETA_TAKE(dsu, N1 * ng);
-  CHEETA_TAKE(dll, N1 * ng); CHEETA_TAKE(dlu, N1 * ng); CHEETA_TAKE(g, N1 * ng);
-  CHEETA_TAKE(m, N1 * ng); CHEETA_TAKE(lg, N1 * ng); CHEETA_TAKE(ug, N1 * ng);
-  CHEETA_TAKE(dx, N1 * nx); CHEETA_TAKE(ddx, N1 * nx); CHEETA_TAKE(p, N1 * nx);
-  CHEETA_TAKE(qb, N1 * nx); CHEETA_TAKE(cs, N1 * nx); CHEETA_TAKE(xt, N1 * nx);
-  CHEETA_TAKE(prd, N1 * nx); CHEETA_TAKE(rd, N1 * nx);
-  CHEETA_TAKE(du, N * nu); CHEETA_TAKE(ddu, N * nu); CHEETA_TAKE(kv, N * nu);
-  CHEETA_TAKE(rb, N * nu); CHEETA_TAKE(ut, N * nu);
-  CHEETA_TAKE(re, N * nc);
-  CHEETA_TAKE(mvec, nx); CHEETA_TAKE(rx0, nx); CHEETA_TAKE(rhs, nu); CHEETA_TAKE(tu, nu);
-  CHEETA_TAKE(nuv, nc); CHEETA_TAKE(nu0, nc);
-  CHEETA_TAKE(PA, nx * nx); CHEETA_TAKE(PB, nx * nu); CHEETA_TAKE(G, nu * nu);
-  CHEETA_TAKE(Hk, nu * nx); CHEETA_TAKE(aug, 2 * nmax * nmax); CHEETA_TAKE(sv, nmax);
-  CHEETA_TAKE(rowj, 2 * nmax); CHEETA_TAKE(colj, nmax);
-  CHEETA_TAKE(stg, ng * nx + ng * nu + (d.ab ? 0 : nx * nx + nx * nu));
-  CHEETA_TAKE(Y, nu * nc); CHEETA_TAKE(T, nc * nx); CHEETA_TAKE(T2, nc * nx);
-  CHEETA_TAKE(Lam, nc * nc); CHEETA_TAKE(Gt, nc ? nu * nu : 0);
-  CHEETA_TAKE(red, 32);
-  L.total_vec = o;
-  o = 0;
-  CHEETA_TAKE(fK, N * nu * nx); CHEETA_TAKE(fGi, N * nu * nu);
-  CHEETA_TAKE(fP, 2 * nx * nx);  // P_{k+1} and P_k, rolled
-  CHEETA_TAKE(fH, nc ? N * nu * nx : 0); CHEETA_TAKE(fYLi, N * nu * nc);
-  CHEETA_TAKE(fLi, N * nc * nc); CHEETA_TAKE(fLiD, N * nc * nu);
-  L.total_fac = o;
-  L.total_ab = d.ab ? N * (nx * nx + nx * nu) : 0;
-  return L;
-}
-
-#undef CHEETA_TAKE
 
 #ifdef __CUDACC__
 
-// out = inverse of sym(M), n x n: Jacobi equilibration, Gauss-Jordan with
-// the one-hot-shifted pivot column, no refinement. M and out may alias.
-static __device__ void spd_inverse(const float* M, float* out, int n,
-                                   float* __restrict__ aug,
-                                   float* __restrict__ sv,
-                                   float* __restrict__ rowj,
-                                   float* __restrict__ colj) {
-  const int tid = threadIdx.x, nt = blockDim.x, n2 = 2 * n;
-  for (int i = tid; i < n; i += nt)
-    sv[i] = 1.0f / sqrtf(fmaxf(M[i * n + i], 1e-30f));
-  __syncthreads();
-  for (int idx = tid; idx < n * n2; idx += nt) {
-    const int i = idx / n2, c = idx % n2;
-    aug[idx] = c < n ? sv[i] * (0.5f * (M[i * n + c] + M[c * n + i])) * sv[c]
-                     : (c - n == i ? 1.f : 0.f);
-  }
-  __syncthreads();
-  // A thread updates the same few entries (row i, window column cc) at
-  // every pivot, so their indices are worked out once: an integer division
-  // in the pivot loop would cost more than the update itself.
-  constexpr int kMine = 4;
-  const bool hoisted = n * (n + 1) <= kMine * nt;
-  int row_of[kMine], col_of[kMine];
+// Thread 0 charges the cycles since the last mark to a phase class. Marks
+// sit right after the barrier that ends a phase, so a mark's interval is
+// the phase's length as the block sees it. Without kOn it is empty, so an
+// untimed kernel carries no timing code.
+template <bool kOn>
+struct PhaseClock {
+  long long t0, last, acc[kNumPhases];
+  __device__ __forceinline__ PhaseClock() {
+    if (kOn && threadIdx.x == 0) {
+      t0 = last = clock64();
 #pragma unroll
-  for (int e = 0; e < kMine; ++e) {
-    const int idx = tid + e * nt;
-    row_of[e] = idx < n * (n + 1) ? idx / (n + 1) : -1;
-    col_of[e] = idx % (n + 1);
+      for (int c = 0; c < kNumPhases; ++c) acc[c] = 0;
+    }
   }
+  __device__ __forceinline__ void mark(int cls) {
+    if (kOn && threadIdx.x == 0) {
+      const long long t = clock64();
+      acc[cls] += t - last;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void write(long long* out) {
+    if (kOn && threadIdx.x == 0 && out) {
+#pragma unroll
+      for (int c = 0; c < kNumPhases; ++c) out[c] = acc[c];
+      out[kNumPhases] = clock64() - t0;
+    }
+  }
+};
+
+constexpr int kInvMine = 8;  // tableau entries per thread: n * n <= 8 * threads
+
+// out = inverse of sym(M), n x n, by the whole block: Jacobi equilibration,
+// Gauss-Jordan with the one-hot-shifted pivot column, the pivot row scaled
+// by the pivot's reciprocal, no refinement. sv = diag(M)^-1/2 is written by
+// the phase that forms M (inv_scale), before the barrier that ends it.
+// Each thread keeps the same few entries of the compact n x n tableau in
+// registers for the whole elimination (slot c of row i: left column c
+// until pivot c, right column n + c from then on; these are the columns a
+// pivot changes, so the operations are those on [S | I], in the same order:
+// ops/cuda_ipm_riccati.py::spd_inverse_gj). One barrier per pivot: the
+// owners of row and column j + 1 pass them to the next pivot through rowb
+// and colb (two of each, by parity). M and out may alias.
+static __device__ void spd_inverse(const float* M, float* out, int n,
+                                   const float* __restrict__ sv,
+                                   float* __restrict__ rowb,
+                                   float* __restrict__ colb) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float v[kInvMine];
+  int ii[kInvMine], cc[kInvMine];
+#pragma unroll
+  for (int e = 0; e < kInvMine; ++e) {
+    const int idx = tid + e * nt;
+    ii[e] = idx < n * n ? idx / n : -1;
+    cc[e] = idx % n;
+    v[e] = 0.f;
+    if (ii[e] >= 0) {
+      const int i = ii[e], c = cc[e];
+      v[e] = sv[i] * (0.5f * (M[i * n + c] + M[c * n + i])) * sv[c];
+      if (i == 0) rowb[c] = v[e];
+      if (c == 0) colb[i] = v[e] - (i == 0 ? 1.f : 0.f);
+    }
+  }
+  __syncthreads();
   for (int j = 0; j < n; ++j) {
+    const float *rb = rowb + (j & 1) * n, *cb = colb + (j & 1) * n;
+    float *rbn = rowb + ((j + 1) & 1) * n, *cbn = colb + ((j + 1) & 1) * n;
     // Row j times the pivot's reciprocal, not divided by the pivot: the
     // IEEE division leaves its fast path for a zero or subnormal numerator
     // (a sparse G has many), and the whole warp waits for the slow one.
-    const float ipiv = 1.0f / aug[j * n2 + j];
-    for (int c = j + tid; c <= j + n; c += nt) rowj[c] = aug[j * n2 + c] * ipiv;
-    for (int i = nt - 1 - tid; i < n; i += nt)
-      colj[i] = aug[i * n2 + j] - (i == j ? 1.f : 0.f);
-    __syncthreads();
-    // Columns left of j are unit vectors already and columns right of
-    // n + j are still zero in row j: only [j, n + j] changes.
-    if (hoisted) {
+    const float ipiv = 1.0f / rb[j];
 #pragma unroll
-      for (int e = 0; e < kMine; ++e)
-        if (row_of[e] >= 0)
-          aug[row_of[e] * n2 + j + col_of[e]] -=
-              colj[row_of[e]] * rowj[j + col_of[e]];
-    } else {
-      for (int idx = tid; idx < n * (n + 1); idx += nt) {
-        const int i = idx / (n + 1), c = j + idx % (n + 1);
-        aug[i * n2 + c] -= colj[i] * rowj[c];
-      }
+    for (int e = 0; e < kInvMine; ++e) {
+      if (ii[e] < 0) continue;
+      const int i = ii[e], c = cc[e];
+      const float colm = cb[i];
+      // Slot j turns into right column n + j, which held e_j: its entry in
+      // the pivot row is 1 * ipiv.
+      const float nv = c == j ? fmaf(-colm, ipiv, i == j ? 1.f : 0.f)
+                              : fmaf(-colm, rb[c] * ipiv, v[e]);
+      v[e] = nv;
+      if (i == j + 1) rbn[c] = nv;
+      if (c == j + 1) cbn[i] = nv - (i == j + 1 ? 1.f : 0.f);
     }
     __syncthreads();
   }
-  for (int idx = tid; idx < n * n; idx += nt) {
-    const int i = idx / n, c = idx % n;
-    out[idx] = sv[i] * aug[i * n2 + n + c] * sv[c];
-  }
+#pragma unroll
+  for (int e = 0; e < kInvMine; ++e)
+    if (ii[e] >= 0) out[ii[e] * n + cc[e]] = sv[ii[e]] * v[e] * sv[cc[e]];
   __syncthreads();
 }
 
-// kFacShared / kAbShared say at compile time whether the Riccati factors
-// and the copy of A, B live in shared memory (else: the global scratch
-// buffer, the global inputs). A pointer that may be either is a generic
-// pointer, and every access through it pays 64-bit address arithmetic and
-// the generic load path instead of a shared-memory load.
-template <bool kFacShared, bool kAbShared>
+// sv entry of the inverse's equilibration, from a diagonal entry of M.
+__device__ __forceinline__ float inv_scale(float diag) {
+  return 1.0f / sqrtf(fmaxf(diag, 1e-30f));
+}
+
+// kFacShared says at compile time whether the Riccati factors live in
+// shared memory (else: the global scratch buffer). A pointer that may be
+// either is a generic pointer, and every access through it pays 64-bit
+// address arithmetic and the generic load path.
+template <bool kFacShared, bool kTimed>
 static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
+  PhaseClock<kTimed> clk;
   const IpmDims d = a.d;
   const IpmParams pa = a.p;
   const int N = d.N, N1 = d.N + 1, nx = d.nx, nu = d.nu, ng = d.ng,
             nc = d.nc;
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long prob = blockIdx.x;
-  const Layout L = make_layout(d);
+  // The layout lives in the launch parameters, so its offsets are constant
+  // operands rather than registers.
+  const Layout& L = a.L;
 
-  const float* in[kNumIn];
-  for (int i = 0; i < kNumIn; ++i)
-    in[i] = a.in[i] ? a.in[i] + prob * a.in_stride[i] : nullptr;
+  // An absent array has a null pointer and stride 0, and stays null.
+  auto in = [&](int i) { return a.in[i] + prob * a.in_stride[i]; };
   float* out[kNumOut];
   for (int i = 0; i < kNumOut; ++i)
-    out[i] = a.out[i] ? a.out[i] + prob * a.out_stride[i] : nullptr;
+    out[i] = a.out[i] + prob * a.out_stride[i];
   // The inputs are read-only and overlap nothing the kernel writes; saying
-  // so lets their loads move ahead of stores to shared memory. Without it
-  // every store orders the loads behind it, and a thread runs in order:
-  // a loop of load, multiply-add, store pays one L2 latency per element.
+  // so lets their loads move ahead of stores to shared memory.
   typedef const float* __restrict__ In;
-  In gA = in[0], gB = in[1], gb = in[2], gQ = in[3], gq = in[4], gR = in[5],
-     gr = in[6], gS = in[7], gC = in[8], gD = in[9], glg = in[10],
-     gug = in[11], gm = in[12], gdx0 = in[13], gCe = in[14], gDe = in[15],
-     ge = in[16], gme = in[17];
+  In gA = in(0), gB = in(1), gb = in(2), gQ = in(3), gq = in(4), gR = in(5),
+     gr = in(6), gS = in(7), gC = in(8), gD = in(9), glg = in(10),
+     gug = in(11), gm = in(12), gdx0 = in(13), gCe = in(14), gDe = in(15),
+     ge = in(16), gme = in(17);
 
   float* s = smem;
   float *sl = s + L.sl, *su = s + L.su, *ll = s + L.ll, *lu = s + L.lu,
-        *rl = s + L.rl, *ru = s + L.ru, *ln = s + L.ln, *w = s + L.w,
-        *rcl = s + L.rcl, *rcu = s + L.rcu, *dsl = s + L.dsl,
-        *dsu = s + L.dsu, *dll = s + L.dll, *dlu = s + L.dlu, *g = s + L.g,
+        *dsl = s + L.dsl, *dsu = s + L.dsu, *dll = s + L.dll,
+        *dlu = s + L.dlu, *g = s + L.g, *ln = s + L.ln, *w = s + L.w,
         *m = s + L.m, *lg = s + L.lg, *ug = s + L.ug;
   float *dx = s + L.dx, *ddx = s + L.ddx, *p = s + L.p, *qb = s + L.qb,
         *cs = s + L.cs, *xt = s + L.xt, *prd = s + L.prd, *rd = s + L.rd;
   float *du = s + L.du, *ddu = s + L.ddu, *kv = s + L.kv, *rb = s + L.rb,
         *ut = s + L.ut, *re = s + L.re;
-  float *mvec = s + L.mvec, *rx0 = s + L.rx0, *rhs = s + L.rhs,
-        *tu = s + L.tu, *nuv = s + L.nuv, *nu0 = s + L.nu0;
-  float *PA = s + L.PA, *PB = s + L.PB, *G = s + L.G, *Hk1 = s + L.Hk,
-        *aug = s + L.aug, *sv = s + L.sv, *rowj = s + L.rowj,
-        *colj = s + L.colj, *stg = s + L.stg;
+  float *rx0 = s + L.rx0, *rhs = s + L.rhs, *tu = s + L.tu, *nuv = s + L.nuv,
+        *nu0 = s + L.nu0;
+  float *PA = s + L.PA, *PB = s + L.PB, *G = s + L.G, *Hw = s + L.Hk,
+        *Gt = s + L.Gt, *Kw = s + L.Kw, *Ww = s + L.Ww;
   float *Y = s + L.Y, *T = s + L.T, *T2 = s + L.T2, *Lam = s + L.Lam,
-        *Gt = s + L.Gt, *red = s + L.red;
+        *Liw = s + L.Liw, *YLiw = s + L.YLiw, *red = s + L.red;
+  float *sv = s + L.sv, *rowb = s + L.rowb, *colb = s + L.colb;
+  auto slot_of = [&](int i) { return s + L.slot + (i & 1) * L.slot_size; };
   float* fac;
   if (kFacShared) fac = s + L.total_vec;
   else fac = a.scratch + prob * a.scratch_stride;
-  // A and B of all stages: a copy in shared memory if it fits (d.ab), the
-  // global arrays otherwise. Same indexing either way.
-  float* sAB = s + L.total_vec + (kFacShared ? L.total_fac : 0);
-  const float *rA, *rB;
-  if (kAbShared) {
-    rA = sAB;
-    rB = sAB + N * nx * nx;
-  } else {
-    rA = gA;
-    rB = gB;
-  }
-  float *fK = fac + L.fK, *fGi = fac + L.fGi, *fP = fac + L.fP,
-        *fH = fac + L.fH, *fYLi = fac + L.fYLi, *fLi = fac + L.fLi,
-        *fLiD = fac + L.fLiD;
+  float *fK = fac + L.fK, *fGi = fac + L.fGi, *fH = fac + L.fH,
+        *fYLi = fac + L.fYLi, *fLi = fac + L.fLi, *fLiD = fac + L.fLiD;
+  const int ab = nx * nx + nx * nu;  // A, B lead every slot
+  // The stage-serial sweeps stream their stages through sub-slots of the
+  // slot region: three (the copies run two stages ahead, which the short
+  // stages of a sweep need to hide a round trip to L2) where they fit,
+  // else two. dep is how many stages ahead.
+  const int gl = kFacShared ? 0 : 1;
+  const int stat_need = ab + nc * nx + nc * nu + gl * nc * nu;
+  const int bwd_need = ab + nc * nx +
+                       gl * (nc ? nu * nu + nu * nx + nu * nc + nc * nc
+                                : nu * nx + nu * nu);
+  const int newton_need =
+      bwd_need > ab + gl * nu * nx ? bwd_need : ab + gl * nu * nx;
+  auto depth_for = [&](int need) {
+    return 3 * need <= 2 * L.slot_size ? 2 : 1;
+  };
+  auto sub_slot = [&](int i, int need, int dep) {
+    return s + L.slot + (i % (dep + 1)) * need;
+  };
 
   // ---- initialization (zero iterate, so g(0, 0) = 0) ----------------------
   float msum = 0.f;
@@ -273,79 +366,128 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
     sl[i] = a0; su[i] = b0;
     ll[i] = mk > 0.f ? pa.mu0 / a0 : 0.f;
     lu[i] = mk > 0.f ? pa.mu0 / b0 : 0.f;
-    dll[i] = 0.f; dlu[i] = 0.f;
+    dsl[i] = 0.f; dsu[i] = 0.f; dll[i] = 0.f; dlu[i] = 0.f;
     msum += mk;
-  }
-  if (kAbShared) {
-    for (int i = tid; i < N * nx * nx; i += nt) sAB[i] = gA[i];
-    for (int i = tid; i < N * nx * nu; i += nt) sAB[N * nx * nx + i] = gB[i];
   }
   for (int i = tid; i < N1 * nx; i += nt) { dx[i] = 0.f; ddx[i] = 0.f; }
   for (int i = tid; i < N * nu; i += nt) { du[i] = 0.f; ddu[i] = 0.f; }
   const float n_active = fmaxf(block_reduce<kSum>(msum, red), 1.f);
+  clk.mark(kPhElementwise);
 
   // Least-squares equality-dual operator of the stationarity metric:
   // LiD_k = (De De' + diag(1 - mask))^-1 De.
   for (int k = 0; k < N && nc; ++k) {
-    const float* De = gDe + (size_t)k * nc * nu;
+    In De = gDe + (size_t)k * nc * nu;
     for (int idx = tid; idx < nc * nc; idx += nt) {
       const int i = idx / nc, j = idx % nc;
       float acc = i == j ? 1.f - gme[k * nc + i] : 0.f;
       for (int l = 0; l < nu; ++l) acc = fmaf(De[i * nu + l], De[j * nu + l], acc);
       Lam[idx] = acc;
+      if (i == j) sv[i] = inv_scale(acc);
     }
     __syncthreads();
-    spd_inverse(Lam, Lam, nc, aug, sv, rowj, colj);
+    clk.mark(kPhProducts);
+    spd_inverse(Lam, Liw, nc, sv, rowb, colb);
+    clk.mark(kPhInverse);
     float* LiD = fLiD + (size_t)k * nc * nu;
     for (int idx = tid; idx < nc * nu; idx += nt) {
       const int i = idx / nu, j = idx % nu;
       float acc = 0.f;
-      for (int l = 0; l < nc; ++l) acc = fmaf(Lam[i * nc + l], De[l * nu + j], acc);
+      for (int l = 0; l < nc; ++l) acc = fmaf(Liw[i * nc + l], De[l * nu + j], acc);
       LiD[idx] = acc;
     }
     __syncthreads();
+    clk.mark(kPhProducts);
   }
 
   // qb <- q + Q x + S' u + C' ln ; rb <- r + R u + S x + D' ln, all stages.
+  // The row products (Q x, R u, S x) split each row over a lane group; the
+  // column products (C' ln, S' u, D' ln) take one output per thread, so
+  // that a warp reads 32 consecutive words of a row of C, S or D.
   auto gradients = [&](const float* x, const float* u) {
     rows(N1 * nx + N * nu,
          [&](int o, int sub) {
            if (o < N1 * nx) {
-             const int k = o / nx, i = o % nx;
-             float acc = pdot(gQ + (size_t)o * nx, 1, x + k * nx, nx, sub) +
-                         pdot(gC + (size_t)k * ng * nx + i, nx, ln + k * ng,
-                              ng, sub);
-             if (k < N)
-               acc += pdot(gS + (size_t)k * nu * nx + i, nx, u + k * nu, nu,
-                           sub);
-             return acc;
+             const int k = o / nx;
+             return pdot(gQ + (size_t)o * nx, 1, x + k * nx, nx, sub);
            }
-           const int oo = o - N1 * nx, k = oo / nu, j = oo % nu;
+           const int oo = o - N1 * nx, k = oo / nu;
            return pdot(gR + (size_t)oo * nu, 1, u + k * nu, nu, sub) +
-                  pdot(gS + (size_t)oo * nx, 1, x + k * nx, nx, sub) +
-                  pdot(gD + (size_t)k * ng * nu + j, nu, ln + k * ng, ng, sub);
+                  pdot(gS + (size_t)oo * nx, 1, x + k * nx, nx, sub);
          },
          [&](int o, float acc) {
            if (o < N1 * nx) qb[o] = gq[o] + acc;
            else rb[o - N1 * nx] = gr[o - N1 * nx] + acc;
          });
+    for (int o = tid; o < N1 * nx + N * nu; o += nt) {
+      float acc = 0.f;
+      if (o < N1 * nx) {
+        const int k = o / nx, i = o % nx;
+        In Ck = gC + (size_t)k * ng * nx + i;
+        const float* lk = ln + k * ng;
+#pragma unroll 8
+        for (int r = 0; r < ng; ++r) acc = fmaf(Ck[(size_t)r * nx], lk[r], acc);
+        if (k < N) {
+          In Sk = gS + (size_t)k * nu * nx + i;
+          const float* uk = u + k * nu;
+#pragma unroll 8
+          for (int j = 0; j < nu; ++j) acc = fmaf(Sk[(size_t)j * nx], uk[j], acc);
+        }
+        qb[o] += acc;
+      } else {
+        const int oo = o - N1 * nx, k = oo / nu, j = oo % nu;
+        In Dk = gD + (size_t)k * ng * nu + j;
+        const float* lk = ln + k * ng;
+#pragma unroll 8
+        for (int r = 0; r < ng; ++r) acc = fmaf(Dk[(size_t)r * nu], lk[r], acc);
+        rb[oo] += acc;
+      }
+    }
+    __syncthreads();
+    clk.mark(kPhGradients);
+  };
+
+  // ---- stationarity ---------------------------------------------------------
+  // Slot contents: A, B, then Ce, De and (global factors) LiD.
+  auto stat_issue = [&](int k, float* st) {
+    copy_async(st, gA + (size_t)k * nx * nx, nx * nx);
+    copy_async(st + nx * nx, gB + (size_t)k * nx * nu, nx * nu);
+    if (nc) {
+      copy_async(st + ab, gCe + (size_t)k * nc * nx, nc * nx);
+      copy_async(st + ab + nc * nx, gDe + (size_t)k * nc * nu, nc * nu);
+      if (!kFacShared)
+        copy_async(st + ab + nc * nx + nc * nu, fLiD + (size_t)k * nc * nu,
+                   nc * nu);
+    }
   };
 
   // Input-space KKT stationarity (inf-norm) at state + alpha * direction:
   // adjoint recursion with least-squares equality duals.
   auto stat_at = [&](float alpha) -> float {
+    const int dep = depth_for(stat_need);
+    for (int q = 0; q < dep; ++q) {
+      if (q < N) stat_issue(N - 1 - q, sub_slot(q, stat_need, dep));
+      cp_async_commit();
+    }
     for (int i = tid; i < N1 * ng; i += nt)
       ln[i] = m[i] * ((lu[i] + alpha * dlu[i]) - (ll[i] + alpha * dll[i]));
     for (int i = tid; i < N1 * nx; i += nt) xt[i] = dx[i] + alpha * ddx[i];
     for (int i = tid; i < N * nu; i += nt) ut[i] = du[i] + alpha * ddu[i];
     __syncthreads();
+    clk.mark(kPhElementwise);
     gradients(xt, ut);
     for (int i = tid; i < nx; i += nt) cs[N * nx + i] = qb[N * nx + i];
+    cp_async_wait(dep - 1);
     __syncthreads();
+    clk.mark(kPhStage);
     float smax = 0.f;
     for (int k = N - 1; k >= 0; --k) {
-      const float* Ak = rA + (size_t)k * nx * nx;
-      const float* Bk = rB + (size_t)k * nx * nu;
+      const int sidx = N - 1 - k;
+      const float* st = sub_slot(sidx, stat_need, dep);
+      if (k - dep >= 0)
+        stat_issue(k - dep, sub_slot(sidx + dep, stat_need, dep));
+      cp_async_commit();
+      const float *Ak = st, *Bk = st + nx * nx;
       const float* cn = cs + (k + 1) * nx;
       if (nc == 0) {
         rows(nu + nx,
@@ -356,11 +498,13 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
              [&](int o, float acc) {
                if (o < nu) smax = nan_max(smax, fabsf(rb[k * nu + o] + acc));
                else cs[k * nx + o - nu] = qb[k * nx + o - nu] + acc;
-             });
+             },
+             WaitCopies{dep - 1});
+        clk.mark(kPhSweeps);
       } else {
-        const float* Ce = gCe + (size_t)k * nc * nx;
-        const float* De = gDe + (size_t)k * nc * nu;
-        const float* LiD = fLiD + (size_t)k * nc * nu;
+        const float *Ce = Bk + nx * nu, *De = Ce + nc * nx;
+        const float* LiD =
+            kFacShared ? fLiD + (size_t)k * nc * nu : De + nc * nu;
         rows(nu, [&](int o, int sub) { return pdot(Bk + o, nu, cn, nx, sub); },
              [&](int o, float acc) { tu[o] = rb[k * nu + o] + acc; });
         rows(nc,
@@ -375,60 +519,81 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
              [&](int o, float acc) {
                if (o < nu) smax = nan_max(smax, fabsf(tu[o] + acc));
                else cs[k * nx + o - nu] = qb[k * nx + o - nu] + acc;
-             });
+             },
+             WaitCopies{dep - 1});
+        clk.mark(kPhSweeps);
       }
     }
-    return block_reduce<kMax>(smax, red);
+    const float r = block_reduce<kMax>(smax, red);
+    clk.mark(kPhElementwise);
+    return r;
+  };
+
+  // ---- factorization --------------------------------------------------------
+  // Slot contents: A, B, C, D, Ce, De, Q, R, S of one stage.
+  const int fq = ab + ng * nx + ng * nu + nc * nx + nc * nu;  // Q's offset
+  auto fac_issue = [&](int k, float* st) {
+    copy_async(st, gA + (size_t)k * nx * nx, nx * nx);
+    copy_async(st + nx * nx, gB + (size_t)k * nx * nu, nx * nu);
+    copy_async(st + ab, gC + (size_t)k * ng * nx, ng * nx);
+    copy_async(st + ab + ng * nx, gD + (size_t)k * ng * nu, ng * nu);
+    if (nc) {
+      float* se = st + ab + ng * nx + ng * nu;
+      copy_async(se, gCe + (size_t)k * nc * nx, nc * nx);
+      copy_async(se + nc * nx, gDe + (size_t)k * nc * nu, nc * nu);
+    }
+    copy_async(st + fq, gQ + (size_t)k * nx * nx, nx * nx);
+    copy_async(st + fq + nx * nx, gR + (size_t)k * nu * nu, nu * nu);
+    copy_async(st + fq + nx * nx + nu * nu, gS + (size_t)k * nu * nx,
+               nu * nx);
   };
 
   // Backward Riccati with the barrier-augmented Hessian blocks
   // Qb = Q + C' diag(w) C (and Rb, Sb with D) and exact elimination of the
-  // masked stage equalities; stores K, G^-1 (W with equalities), P
+  // masked stage equalities; stores K, G^-1 (W with equalities)
   // (+ H, Y Lam^-1, Lam^-1) and prd_k = P_{k+1} rd_k.
   auto factorize = [&]() {
+    fac_issue(N - 1, slot_of(0));
     for (int i = tid; i < N1 * ng; i += nt)
       w[i] = m[i] * nan_min(ll[i] / sl[i] + lu[i] / su[i], pa.w_max);
     __syncthreads();
-    float* Pn = fP;            // P_{k+1}
-    float* Pk = fP + nx * nx;  // P_k; the two buffers swap after each stage
-    float* gP = out[9];        // value-function Hessians, if asked for
+    clk.mark(kPhElementwise);
+    float* Pn = s + L.P0;  // P_{k+1}
+    float* Pk = s + L.P1;  // P_k; the two buffers swap after each stage
+    float* gP = out[9];    // value-function Hessians, if asked for
     {
-      const float* QN = gQ + (size_t)N * nx * nx;
-      const float* CN = gC + (size_t)N * ng * nx;
-      for (int idx = tid; idx < nx * nx; idx += nt) {
-        const int i = idx / nx, j = idx % nx;
-        float acc = 0.5f * (QN[idx] + QN[j * nx + i]);
-        for (int r = 0; r < ng; ++r)
-          acc = fmaf(CN[r * nx + i] * w[N * ng + r], CN[r * nx + j], acc);
-        Pn[idx] = acc;
-        if (gP) gP[(size_t)N * nx * nx + idx] = acc;
-      }
+      In QN = gQ + (size_t)N * nx * nx;
+      In CN = gC + (size_t)N * ng * nx;
+      const float* wN = w + N * ng;
+      tile_product<4, 4>(
+          tid, nt, nx, nx, ng,
+          [&](int i, int j) { return 0.5f * (QN[i * nx + j] + QN[j * nx + i]); },
+          [&](int i, int l) { return CN[l * nx + i] * wN[l]; },
+          [&](int l, int j) { return CN[l * nx + j]; },
+          [&](int i, int j, float v) {
+            Pn[i * nx + j] = v;
+            if (gP) gP[(size_t)N * nx * nx + i * nx + j] = v;
+          });
+      cp_async_wait_all();
       __syncthreads();
+      clk.mark(kPhProducts);
     }
     for (int k = N - 1; k >= 0; --k) {
-      // Stage the matrices that the products below read nx or ng times
-      // per output: one coalesced copy with many loads in flight, instead
-      // of an L2 round trip inside every inner loop.
-      float *Ck = stg, *Dk = Ck + ng * nx;
-      const float *Ak = rA + (size_t)k * nx * nx,
-                  *Bk = rB + (size_t)k * nx * nu;
-      if (!kAbShared) {
-        float *sAk = Dk + ng * nu, *sBk = sAk + nx * nx;
-        for (int i = tid; i < nx * nx; i += nt) sAk[i] = Ak[i];
-        for (int i = tid; i < nx * nu; i += nt) sBk[i] = Bk[i];
-        Ak = sAk;
-        Bk = sBk;
-      }
-      for (int i = tid; i < ng * nx; i += nt) Ck[i] = gC[(size_t)k * ng * nx + i];
-      for (int i = tid; i < ng * nu; i += nt) Dk[i] = gD[(size_t)k * ng * nu + i];
-      __syncthreads();
-      In Qk = gQ + (size_t)k * nx * nx;
-      In Rk = gR + (size_t)k * nu * nu;
-      In Sk = gS + (size_t)k * nu * nx;
+      const int sidx = N - 1 - k;
+      const float* st = slot_of(sidx);
+      if (k > 0) fac_issue(k - 1, slot_of(sidx + 1));
+      const float *Ak = st, *Bk = st + nx * nx, *Ck = st + ab,
+                  *Dk = Ck + ng * nx, *Cek = Dk + ng * nu,
+                  *Dek = Cek + nc * nx;
+      const float *Qk = st + fq, *Rk = Qk + nx * nx, *Sk = Rk + nu * nu;
       const float* wk = w + k * ng;
+      // Where the products read this stage's factors: the factor store
+      // itself in shared memory, else the work copies; a global store is
+      // written beside them.
       float* Kk = fK + (size_t)k * nu * nx;
-      float* Gik = fGi + (size_t)k * nu * nu;
-      float* Hk = nc ? fH + (size_t)k * nu * nx : Hk1;
+      float* Gik = fGi + (size_t)k * nu * nu;  // G^-1, or W with equalities
+      float* Ks = kFacShared ? Kk : Kw;
+      float* Hs = (kFacShared && nc) ? fH + (size_t)k * nu * nx : Hw;
       {  // PA = P_{k+1} A, PB = P_{k+1} B, prd_k = P_{k+1} rd_k
         const int n_pa = tiles_of(nx, nx, 4, 4), n_pb = tiles_of(nx, nu, 4, 4);
         PhaseSplit ph(n_pa + n_pb + nx);
@@ -452,6 +617,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
         }
       }
       __syncthreads();
+      clk.mark(kPhProducts);
       {  // G = Rb + B'PB + reg I ; H = Sb + B'PA ; Pk = Qb + A'PA (+ H'K later)
         const int n_g = tiles_of(nu, nu, 4, 4), n_h = tiles_of(nu, nx, 4, 4),
                   n_p = tiles_of(nx, nx, 4, 4);
@@ -466,7 +632,10 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
             [&](int l, int j) { return Dk[l * nu + j]; },
             nx, [&](int i, int l) { return Bk[l * nu + i]; },
             [&](int l, int j) { return PB[l * nu + j]; },
-            [&](int i, int j, float v) { G[i * nu + j] = v; });
+            [&](int i, int j, float v) {
+              G[i * nu + j] = v;
+              if (i == j) sv[i] = inv_scale(v);
+            });
         tile_product2<4, 4>(
             ph.first(n_h), ph.step(n_h), nu, nx,
             [&](int i, int j) { return Sk[i * nx + j]; },
@@ -474,7 +643,10 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
             [&](int l, int j) { return Ck[l * nx + j]; },
             nx, [&](int i, int l) { return Bk[l * nu + i]; },
             [&](int l, int j) { return PA[l * nx + j]; },
-            [&](int i, int j, float v) { Hk[i * nx + j] = v; });
+            [&](int i, int j, float v) {
+              Hs[i * nx + j] = v;
+              if (!kFacShared && nc) fH[(size_t)k * nu * nx + i * nx + j] = v;
+            });
         tile_product2<4, 4>(
             ph.first(n_p), ph.step(n_p), nx, nx,
             [&](int i, int j) { return Qk[i * nx + j]; },
@@ -485,99 +657,129 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
             [&](int i, int j, float v) { Pk[i * nx + j] = v; });
       }
       __syncthreads();
+      clk.mark(kPhProducts);
       if (nc == 0) {
-        spd_inverse(G, Gik, nu, aug, sv, rowj, colj);
-        tile_product<4, 4>(
+        float* Gis = kFacShared ? Gik : Gt;
+        spd_inverse(G, Gis, nu, sv, rowb, colb);
+        clk.mark(kPhInverse);
+        // K and H'K have the short sums (nu terms): smaller tiles, so that
+        // more threads share them and each chain is shorter.
+        tile_product<2, 2>(
             tid, nt, nu, nx, nu,
             [&](int, int) { return 0.f; },
-            [&](int i, int l) { return Gik[i * nu + l]; },
-            [&](int l, int j) { return Hk[l * nx + j]; },
-            [&](int i, int j, float v) { Kk[i * nx + j] = -v; });
+            [&](int i, int l) { return Gis[i * nu + l]; },
+            [&](int l, int j) { return Hs[l * nx + j]; },
+            [&](int i, int j, float v) {
+              Ks[i * nx + j] = -v;
+              if (!kFacShared) Kk[i * nx + j] = -v;
+            });
+        if (!kFacShared)
+          for (int i = tid; i < nu * nu; i += nt) Gik[i] = Gis[i];
         __syncthreads();
-        tile_product<4, 4>(
+        clk.mark(kPhProducts);
+        tile_product<2, 4>(
             tid, nt, nx, nx, nu,
             [&](int i, int j) { return Pk[i * nx + j]; },
-            [&](int i, int l) { return Hk[l * nx + i]; },
-            [&](int l, int j) { return Kk[l * nx + j]; },
+            [&](int i, int l) { return Hs[l * nx + i]; },
+            [&](int l, int j) { return Ks[l * nx + j]; },
             [&](int i, int j, float v) { Pk[i * nx + j] = v; });
         __syncthreads();
+        clk.mark(kPhProducts);
       } else {
-        const float* Ce = gCe + (size_t)k * nc * nx;
-        const float* De = gDe + (size_t)k * nc * nu;
-        float* YLi = fYLi + (size_t)k * nu * nc;
-        float* Li = fLi + (size_t)k * nc * nc;
-        spd_inverse(G, Gt, nu, aug, sv, rowj, colj);
+        // The equality elimination: small products (nc rows), one output
+        // per thread, every operand in shared memory.
+        float* YLik = fYLi + (size_t)k * nu * nc;
+        float* Lik = fLi + (size_t)k * nc * nc;
+        float* YLis = kFacShared ? YLik : YLiw;
+        float* Lis = kFacShared ? Lik : Liw;
+        float* Ws = kFacShared ? Gik : Ww;
+        spd_inverse(G, Gt, nu, sv, rowb, colb);
+        clk.mark(kPhInverse);
         for (int idx = tid; idx < nu * nc; idx += nt) {  // Y = G^-1 De'
           const int i = idx / nc, r = idx % nc;
           float acc = 0.f;
           for (int l = 0; l < nu; ++l)
-            acc = fmaf(Gt[i * nu + l], De[r * nu + l], acc);
+            acc = fmaf(Gt[i * nu + l], Dek[r * nu + l], acc);
           Y[idx] = acc;
         }
         __syncthreads();
+        clk.mark(kPhProducts);
         for (int idx = tid; idx < nc * nc; idx += nt) {  // Lam = De Y + E
           const int r = idx / nc, c = idx % nc;
           float acc = r == c ? pa.eps * (1.f - gme[k * nc + r]) : 0.f;
           for (int l = 0; l < nu; ++l)
-            acc = fmaf(De[r * nu + l], Y[l * nc + c], acc);
+            acc = fmaf(Dek[r * nu + l], Y[l * nc + c], acc);
           Lam[idx] = acc;
+          if (r == c) sv[r] = inv_scale(acc);
         }
         __syncthreads();
-        spd_inverse(Lam, Li, nc, aug, sv, rowj, colj);
-        for (int idx = tid; idx < nu * nc; idx += nt) {  // YLi = Y Li
-          const int i = idx / nc, r = idx % nc;
-          float acc = 0.f;
-          for (int l = 0; l < nc; ++l)
-            acc = fmaf(Y[i * nc + l], Li[l * nc + r], acc);
-          YLi[idx] = acc;
+        clk.mark(kPhProducts);
+        spd_inverse(Lam, Lis, nc, sv, rowb, colb);
+        clk.mark(kPhInverse);
+        // YLi = Y Li ; T = Ce - Y' H
+        for (int idx = tid; idx < nu * nc + nc * nx; idx += nt) {
+          if (idx < nu * nc) {
+            const int i = idx / nc, r = idx % nc;
+            float acc = 0.f;
+            for (int l = 0; l < nc; ++l)
+              acc = fmaf(Y[i * nc + l], Lis[l * nc + r], acc);
+            YLis[idx] = acc;
+            if (!kFacShared) YLik[idx] = acc;
+          } else {
+            const int e = idx - nu * nc, r = e / nx, j = e % nx;
+            float acc = 0.f;
+            for (int l = 0; l < nu; ++l)
+              acc = fmaf(Y[l * nc + r], Hs[l * nx + j], acc);
+            T[e] = Cek[e] - acc;
+          }
         }
+        if (!kFacShared)
+          for (int i = tid; i < nc * nc; i += nt) Lik[i] = Lis[i];
         __syncthreads();
-        // W = G^-1 - YLi Y' ; T = Ce - Y' H
+        clk.mark(kPhProducts);
+        // W = G^-1 - YLi Y' ; T2 = Li T
         for (int idx = tid; idx < nu * nu + nc * nx; idx += nt) {
           if (idx < nu * nu) {
             const int i = idx / nu, j = idx % nu;
             float acc = 0.f;
             for (int r = 0; r < nc; ++r)
-              acc = fmaf(YLi[i * nc + r], Y[j * nc + r], acc);
-            Gik[idx] = Gt[idx] - acc;
+              acc = fmaf(YLis[i * nc + r], Y[j * nc + r], acc);
+            const float wv = Gt[idx] - acc;
+            Ws[idx] = wv;
+            if (!kFacShared) Gik[idx] = wv;
           } else {
             const int e = idx - nu * nu, r = e / nx, j = e % nx;
             float acc = 0.f;
-            for (int l = 0; l < nu; ++l)
-              acc = fmaf(Y[l * nc + r], Hk[l * nx + j], acc);
-            T[e] = Ce[e] - acc;
-          }
-        }
-        __syncthreads();
-        // K = -(W H + YLi Ce) ; T2 = Li T
-        for (int idx = tid; idx < nu * nx + nc * nx; idx += nt) {
-          if (idx < nu * nx) {
-            const int i = idx / nx, j = idx % nx;
-            float acc = 0.f;
-            for (int l = 0; l < nu; ++l)
-              acc = fmaf(Gik[i * nu + l], Hk[l * nx + j], acc);
-            for (int r = 0; r < nc; ++r)
-              acc = fmaf(YLi[i * nc + r], Ce[r * nx + j], acc);
-            Kk[idx] = -acc;
-          } else {
-            const int e = idx - nu * nx, r = e / nx, j = e % nx;
-            float acc = 0.f;
             for (int c = 0; c < nc; ++c)
-              acc = fmaf(Li[r * nc + c], T[c * nx + j], acc);
+              acc = fmaf(Lis[r * nc + c], T[c * nx + j], acc);
             T2[e] = acc;
           }
         }
         __syncthreads();
+        clk.mark(kPhProducts);
+        for (int idx = tid; idx < nu * nx; idx += nt) {  // K = -(W H + YLi Ce)
+          const int i = idx / nx, j = idx % nx;
+          float acc = 0.f;
+          for (int l = 0; l < nu; ++l)
+            acc = fmaf(Ws[i * nu + l], Hs[l * nx + j], acc);
+          for (int r = 0; r < nc; ++r)
+            acc = fmaf(YLis[i * nc + r], Cek[r * nx + j], acc);
+          Ks[idx] = -acc;
+          if (!kFacShared) Kk[idx] = -acc;
+        }
+        __syncthreads();
+        clk.mark(kPhProducts);
         for (int idx = tid; idx < nx * nx; idx += nt) {  // Pk += H'K + Ce'T2
           const int i = idx / nx, j = idx % nx;
           float acc = Pk[idx];
           for (int l = 0; l < nu; ++l)
-            acc = fmaf(Hk[l * nx + i], Kk[l * nx + j], acc);
+            acc = fmaf(Hs[l * nx + i], Ks[l * nx + j], acc);
           for (int r = 0; r < nc; ++r)
-            acc = fmaf(Ce[r * nx + i], T2[r * nx + j], acc);
+            acc = fmaf(Cek[r * nx + i], T2[r * nx + j], acc);
           Pk[idx] = acc;
         }
         __syncthreads();
+        clk.mark(kPhProducts);
       }
       for (int idx = tid; idx < nx * nx; idx += nt) {  // Pk <- sym(Pk)
         const int i = idx / nx, j = idx % nx;
@@ -587,7 +789,9 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
           Pk[j * nx + i] = v;
         }
       }
+      cp_async_wait_all();  // the next stage's slot
       __syncthreads();
+      clk.mark(kPhProducts);
       if (gP) {
         for (int idx = tid; idx < nx * nx; idx += nt)
           gP[(size_t)k * nx * nx + idx] = Pk[idx];
@@ -598,87 +802,159 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
     }
   };
 
-  // One Newton direction against the stored factors for the complementarity
-  // right-hand sides in rcl/rcu: backward vector pass, forward rollout,
-  // slack and dual directions.
-  auto newton = [&]() {
-    for (int i = tid; i < N1 * ng; i += nt) {
-      const float beta =
-          m[i] * ((ll[i] / sl[i]) * rl[i] + (lu[i] / su[i]) * ru[i] +
-                  rcl[i] / sl[i] - rcu[i] / su[i]);
-      ln[i] = m[i] * (lu[i] - ll[i] + beta);
-    }
-    __syncthreads();
-    gradients(dx, du);
-    for (int i = tid; i < nx; i += nt) p[N * nx + i] = qb[N * nx + i];
-    __syncthreads();
-    for (int k = N - 1; k >= 0; --k) {
-      const float* Ak = rA + (size_t)k * nx * nx;
-      const float* Bk = rB + (size_t)k * nx * nu;
-      const float* Kk = fK + (size_t)k * nu * nx;
-      const float* Gik = fGi + (size_t)k * nu * nu;
-      for (int i = tid; i < nx; i += nt)
-        mvec[i] = p[(k + 1) * nx + i] + prd[k * nx + i];
-      __syncthreads();
-      rows(nu, [&](int o, int sub) { return pdot(Bk + o, nu, mvec, nx, sub); },
-           [&](int o, float acc) { rhs[o] = rb[k * nu + o] + acc; });
-      if (nc == 0) {
-        rows(nu + nx,
-             [&](int o, int sub) {
-               return o < nu ? pdot(Gik + o * nu, 1, rhs, nu, sub)
-                             : pdot(Ak + (o - nu), nx, mvec, nx, sub) +
-                                   pdot(Kk + (o - nu), nx, rhs, nu, sub);
-             },
-             [&](int o, float acc) {
-               if (o < nu) kv[k * nu + o] = -acc;
-               else p[k * nx + o - nu] = qb[k * nx + o - nu] + acc;
-             });
-      } else {
-        const float* Ce = gCe + (size_t)k * nc * nx;
-        const float* Hk = fH + (size_t)k * nu * nx;
-        const float* YLi = fYLi + (size_t)k * nu * nc;
-        const float* Li = fLi + (size_t)k * nc * nc;
-        const float* rek = re + k * nc;  // h = -r_eq
-        rows(nu + nc,
-             [&](int o, int sub) {
-               return o < nu ? pdot(Gik + o * nu, 1, rhs, nu, sub) +
-                                   pdot(YLi + o * nc, 1, rek, nc, sub)
-                             : pdot(YLi + (o - nu), nc, rhs, nu, sub) -
-                                   pdot(Li + (o - nu) * nc, 1, rek, nc, sub);
-             },
-             [&](int o, float acc) {
-               if (o < nu) kv[k * nu + o] = -acc;
-               else nu0[o - nu] = -acc;
-             });
-        rows(nx,
-             [&](int o, int sub) {
-               return pdot(Ak + o, nx, mvec, nx, sub) +
-                      pdot(Hk + o, nx, kv + k * nu, nu, sub) +
-                      pdot(Ce + o, nx, nu0, nc, sub);
-             },
-             [&](int o, float acc) { p[k * nx + o] = qb[k * nx + o] + acc; });
+  // ---- Newton direction -----------------------------------------------------
+  // The backward pass (s = 0 .. N-1, stage N-1-s) and the forward rollout
+  // (s = N .. 2N-1, stage s-N) are one stream of 2N stages through the
+  // sub-slots. Backward stage: A, B, Ce, then (global factors) K, G^-1 or
+  // W, H, Y Lam^-1, Lam^-1; forward stage: A, B, then (global factors) K.
+  auto newton_issue = [&](int sidx, float* st) {
+    const bool back = sidx < N;
+    const int k = back ? N - 1 - sidx : sidx - N;
+    copy_async(st, gA + (size_t)k * nx * nx, nx * nx);
+    copy_async(st + nx * nx, gB + (size_t)k * nx * nu, nx * nu);
+    if (back) {
+      float* o = st + ab;
+      if (nc) {
+        copy_async(o, gCe + (size_t)k * nc * nx, nc * nx);
+        o += nc * nx;
       }
+      if (!kFacShared) {
+        if (nc == 0) {
+          copy_async(o, fK + (size_t)k * nu * nx, nu * nx);
+          copy_async(o + nu * nx, fGi + (size_t)k * nu * nu, nu * nu);
+        } else {
+          copy_async(o, fGi + (size_t)k * nu * nu, nu * nu);
+          o += nu * nu;
+          copy_async(o, fH + (size_t)k * nu * nx, nu * nx);
+          o += nu * nx;
+          copy_async(o, fYLi + (size_t)k * nu * nc, nu * nc);
+          copy_async(o + nu * nc, fLi + (size_t)k * nc * nc, nc * nc);
+        }
+      }
+    } else if (!kFacShared) {
+      copy_async(st + ab, fK + (size_t)k * nu * nx, nu * nx);
+    }
+  };
+
+  // One Newton direction against the stored factors for the complementarity
+  // right-hand sides rc_l, rc_u: m (s l) in the predictor, m (s l + ds dl -
+  // sigma mu) in the corrector (ds, dl: the predictor's). Backward vector
+  // pass, forward rollout, slack and dual directions.
+  auto newton = [&](bool corr, float sigma, float mu) {
+    auto rcl_at = [&](int i) {
+      return corr ? m[i] * (sl[i] * ll[i] + dsl[i] * dll[i] - sigma * mu)
+                  : m[i] * (sl[i] * ll[i]);
+    };
+    auto rcu_at = [&](int i) {
+      return corr ? m[i] * (su[i] * lu[i] + dsu[i] * dlu[i] - sigma * mu)
+                  : m[i] * (su[i] * lu[i]);
+    };
+    const int dep = depth_for(newton_need);
+    for (int q = 0; q < dep; ++q) {
+      if (q < 2 * N) newton_issue(q, sub_slot(q, newton_need, dep));
+      cp_async_commit();
+    }
+    for (int i = tid; i < N1 * ng; i += nt) {
+      const float rl = g[i] - sl[i] - lg[i], ru = g[i] + su[i] - ug[i];
+      const float beta =
+          m[i] * ((ll[i] / sl[i]) * rl + (lu[i] / su[i]) * ru +
+                  rcl_at(i) / sl[i] - rcu_at(i) / su[i]);
+      ln[i] = m[i] * (lu[i] - ll[i] + beta);
     }
     for (int i = tid; i < nx; i += nt) ddx[i] = rx0[i];
     __syncthreads();
-    for (int k = 0; k < N; ++k) {
-      const float* Ak = rA + (size_t)k * nx * nx;
-      const float* Bk = rB + (size_t)k * nx * nu;
-      const float* Kk = fK + (size_t)k * nu * nx;
-      rows(nu,
-           [&](int o, int sub) {
-             return pdot(Kk + o * nx, 1, ddx + k * nx, nx, sub);
-           },
-           [&](int o, float acc) { ddu[k * nu + o] = acc + kv[k * nu + o]; });
-      rows(nx,
-           [&](int o, int sub) {
-             return pdot(Ak + o * nx, 1, ddx + k * nx, nx, sub) +
-                    pdot(Bk + o * nu, 1, ddu + k * nu, nu, sub);
-           },
-           [&](int o, float acc) {
-             ddx[(k + 1) * nx + o] = acc + rd[k * nx + o];
-           });
+    clk.mark(kPhElementwise);
+    gradients(dx, du);
+    for (int i = tid; i < nx; i += nt) p[N * nx + i] = qb[N * nx + i];
+    cp_async_wait(dep - 1);
+    __syncthreads();
+    clk.mark(kPhStage);
+    for (int sidx = 0; sidx < 2 * N; ++sidx) {
+      const float* st = sub_slot(sidx, newton_need, dep);
+      if (sidx + dep < 2 * N)
+        newton_issue(sidx + dep, sub_slot(sidx + dep, newton_need, dep));
+      cp_async_commit();
+      const float *Ak = st, *Bk = st + nx * nx;
+      if (sidx < N) {
+        const int k = N - 1 - sidx;
+        const float* pn = p + (k + 1) * nx;  // with prd_k: m = p_{k+1} + prd_k
+        const float* pr = prd + k * nx;
+        rows(nu,
+             [&](int o, int sub) { return pdot2(Bk + o, nu, pn, pr, nx, sub); },
+             [&](int o, float acc) { rhs[o] = rb[k * nu + o] + acc; });
+        clk.mark(kPhSweeps);
+        if (nc == 0) {
+          const float* Kk = kFacShared ? fK + (size_t)k * nu * nx : st + ab;
+          const float* Gik =
+              kFacShared ? fGi + (size_t)k * nu * nu : st + ab + nu * nx;
+          rows(nu + nx,
+               [&](int o, int sub) {
+                 return o < nu ? pdot(Gik + o * nu, 1, rhs, nu, sub)
+                               : pdot2(Ak + (o - nu), nx, pn, pr, nx, sub) +
+                                     pdot(Kk + (o - nu), nx, rhs, nu, sub);
+               },
+               [&](int o, float acc) {
+                 if (o < nu) kv[k * nu + o] = -acc;
+                 else p[k * nx + o - nu] = qb[k * nx + o - nu] + acc;
+               },
+               WaitCopies{dep - 1});
+          clk.mark(kPhSweeps);
+        } else {
+          const float* Ce = st + ab;
+          const float* fs = Ce + nc * nx;  // factors in the slot
+          const float* Wk = kFacShared ? fGi + (size_t)k * nu * nu : fs;
+          const float* Hk =
+              kFacShared ? fH + (size_t)k * nu * nx : fs + nu * nu;
+          const float* YLi = kFacShared ? fYLi + (size_t)k * nu * nc
+                                        : fs + nu * nu + nu * nx;
+          const float* Li = kFacShared ? fLi + (size_t)k * nc * nc
+                                       : fs + nu * nu + nu * nx + nu * nc;
+          const float* rek = re + k * nc;  // h = -r_eq
+          rows(nu + nc,
+               [&](int o, int sub) {
+                 return o < nu ? pdot(Wk + o * nu, 1, rhs, nu, sub) +
+                                     pdot(YLi + o * nc, 1, rek, nc, sub)
+                               : pdot(YLi + (o - nu), nc, rhs, nu, sub) -
+                                     pdot(Li + (o - nu) * nc, 1, rek, nc, sub);
+               },
+               [&](int o, float acc) {
+                 if (o < nu) kv[k * nu + o] = -acc;
+                 else nu0[o - nu] = -acc;
+               });
+          clk.mark(kPhSweeps);
+          rows(nx,
+               [&](int o, int sub) {
+                 return pdot2(Ak + o, nx, pn, pr, nx, sub) +
+                        pdot(Hk + o, nx, kv + k * nu, nu, sub) +
+                        pdot(Ce + o, nx, nu0, nc, sub);
+               },
+               [&](int o, float acc) { p[k * nx + o] = qb[k * nx + o] + acc; },
+               WaitCopies{dep - 1});
+          clk.mark(kPhSweeps);
+        }
+      } else {
+        const int k = sidx - N;
+        const float* Kk = kFacShared ? fK + (size_t)k * nu * nx : st + ab;
+        rows(nu,
+             [&](int o, int sub) {
+               return pdot(Kk + o * nx, 1, ddx + k * nx, nx, sub);
+             },
+             [&](int o, float acc) { ddu[k * nu + o] = acc + kv[k * nu + o]; });
+        clk.mark(kPhSweeps);
+        rows(nx,
+             [&](int o, int sub) {
+               return pdot(Ak + o * nx, 1, ddx + k * nx, nx, sub) +
+                      pdot(Bk + o * nu, 1, ddu + k * nu, nu, sub);
+             },
+             [&](int o, float acc) {
+               ddx[(k + 1) * nx + o] = acc + rd[k * nx + o];
+             },
+             WaitCopies{dep - 1});
+        clk.mark(kPhSweeps);
+      }
     }
+    // Constraint rows of the direction, and from them the slack and dual
+    // directions (rc_l, rc_u read before ds, dl are overwritten).
     rows(N1 * ng,
          [&](int o, int sub) {
            const int k = o / ng;
@@ -687,15 +963,16 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
              acc += pdot(gD + (size_t)o * nu, 1, ddu + k * nu, nu, sub);
            return acc;
          },
-         [&](int o, float acc) { g[o] = acc; });
-    for (int i = tid; i < N1 * ng; i += nt) {
-      const float ds_l = m[i] * (g[i] + rl[i]);
-      const float ds_u = m[i] * (-g[i] - ru[i]);
-      dsl[i] = ds_l; dsu[i] = ds_u;
-      dll[i] = -m[i] * (rcl[i] + ll[i] * ds_l) / sl[i];
-      dlu[i] = -m[i] * (rcu[i] + lu[i] * ds_u) / su[i];
-    }
-    __syncthreads();
+        [&](int i, float gi) {
+           const float rl = g[i] - sl[i] - lg[i], ru = g[i] + su[i] - ug[i];
+           const float rcl = rcl_at(i), rcu = rcu_at(i);
+           const float ds_l = m[i] * (gi + rl);
+           const float ds_u = m[i] * (-gi - ru);
+           dsl[i] = ds_l; dsu[i] = ds_u;
+           dll[i] = -m[i] * (rcl + ll[i] * ds_l) / sl[i];
+           dlu[i] = -m[i] * (rcu + lu[i] * ds_u) / su[i];
+         });
+    clk.mark(kPhBulk);
   };
 
   // Largest alpha <= 1 keeping slacks and duals inside the
@@ -712,15 +989,15 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
       r = nan_min(r, one(ll[i], dll[i], m[i]));
       r = nan_min(r, one(lu[i], dlu[i], m[i]));
     }
-    return nan_min(1.f, block_reduce<kMin>(r, red));
+    r = nan_min(1.f, block_reduce<kMin>(r, red));
+    clk.mark(kPhElementwise);
+    return r;
   };
 
   // ---- the Mehrotra loop ---------------------------------------------------
   // Written so that every phase appears once in the code: round -1 only
   // evaluates the stationarity of the starting point, and the predictor and
-  // the corrector are two passes of one loop. The kernel is one long
-  // sequence of different phases, so every duplicate costs instruction
-  // fetches on each iteration.
+  // the corrector are two passes of one loop.
   float stat_old = 0.f, mu = INFINITY;
   for (int it = -1; it < d.iters; ++it) {
     float alpha = 0.f;
@@ -737,8 +1014,8 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
              }
              if (o < N1 * ng + N * nx) {
                const int oo = o - N1 * ng, k = oo / nx;
-               return pdot(rA + (size_t)oo * nx, 1, dx + k * nx, nx, sub) +
-                      pdot(rB + (size_t)oo * nu, 1, du + k * nu, nu, sub);
+               return pdot(gA + (size_t)oo * nx, 1, dx + k * nx, nx, sub) +
+                      pdot(gB + (size_t)oo * nu, 1, du + k * nu, nu, sub);
              }
              const int oo = o - N1 * ng - N * nx, k = oo / nc;
              return pdot(gCe + (size_t)oo * nx, 1, dx + k * nx, nx, sub) +
@@ -755,21 +1032,19 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
                re[oo] = gme[oo] * (acc + ge[oo]);
              }
            });
+      clk.mark(kPhBulk);
       float csum = 0.f;
-      for (int i = tid; i < N1 * ng; i += nt) {
-        rl[i] = g[i] - sl[i] - lg[i];
-        ru[i] = g[i] + su[i] - ug[i];
-        const float cl = m[i] * (sl[i] * ll[i]), cu = m[i] * (su[i] * lu[i]);
-        rcl[i] = cl; rcu[i] = cu;  // predictor right-hand sides (sigma = 0)
+      for (int i = tid; i < N1 * ng; i += nt)
         csum += m[i] * (sl[i] * ll[i] + su[i] * lu[i]);
-      }
       for (int i = tid; i < nx; i += nt) rx0[i] = gdx0[i] - dx[i];
       mu = block_reduce<kSum>(csum, red) / (2.f * n_active);
+      clk.mark(kPhElementwise);
 
       factorize();
+      float sigma = 0.f;
 #pragma unroll 1
       for (int pass = 0; pass < 2; ++pass) {
-        newton();  // predictor, then corrector on the same factorization
+        newton(pass == 1, sigma, mu);  // predictor, then corrector
         const float a_step = step_length();
         if (pass == 1) {
           alpha = a_step;
@@ -780,14 +1055,9 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
           asum += m[i] * ((sl[i] + a_step * dsl[i]) * (ll[i] + a_step * dll[i]) +
                           (su[i] + a_step * dsu[i]) * (lu[i] + a_step * dlu[i]));
         const float mu_aff = block_reduce<kSum>(asum, red) / (2.f * n_active);
+        clk.mark(kPhElementwise);
         const float ratio = mu_aff / nan_max(mu, 1e-30f);
-        const float sigma = nan_min(nan_max(ratio * ratio * ratio, 0.f), 1.f);
-        // Corrector: new complementarity right-hand sides.
-        for (int i = tid; i < N1 * ng; i += nt) {
-          rcl[i] = m[i] * (sl[i] * ll[i] + dsl[i] * dll[i] - sigma * mu);
-          rcu[i] = m[i] * (su[i] * lu[i] + dsu[i] * dlu[i] - sigma * mu);
-        }
-        __syncthreads();
+        sigma = nan_min(nan_max(ratio * ratio * ratio, 0.f), 1.f);
       }
       // Convergence freeze: zero step once mu < mu_tol unless stationarity
       // is still unresolved.
@@ -814,6 +1084,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
       stat_old = stat_new;
     }
     __syncthreads();
+    clk.mark(kPhElementwise);
   }
 
   // ---- results ---------------------------------------------------------------
@@ -832,6 +1103,8 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
     for (int i = tid; i < N * nu; i += nt) out[8][i] = kv[i];
     for (int i = tid; i < N1 * nx; i += nt) out[10][i] = p[i];
   }
+  clk.mark(kPhElementwise);
+  clk.write(a.timers ? a.timers + prob * kNumPhaseSlots : nullptr);
 }
 
 #endif  // __CUDACC__

@@ -98,20 +98,24 @@ def _build(lib_path: Path) -> None:
 
 _PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
-_LAUNCH_ARGTYPES = [
+_IO_ARGTYPES = [
     ctypes.POINTER(_PTR), ctypes.POINTER(_LL),  # inputs, their strides
     ctypes.POINTER(_PTR), ctypes.POINTER(_LL),  # outputs, their strides
-    _PTR, _LL,  # factor scratch, its stride
+]
+_SHAPE_ARGTYPES = [
     ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_float),  # dims, params
     _INT, _INT, _LL, _PTR,  # batch, threads, smem bytes, stream
 ]
-
-# The equality-Riccati launchers take no factor scratch.
-_EQ_LAUNCH_ARGTYPES = _LAUNCH_ARGTYPES[:4] + _LAUNCH_ARGTYPES[6:]
+# The interior-point launchers also take the factor scratch, its stride and
+# the section-timer buffer (null: the untimed kernel).
+_LAUNCH_ARGTYPES = _IO_ARGTYPES + [_PTR, _LL, _PTR] + _SHAPE_ARGTYPES
+_EQ_LAUNCH_ARGTYPES = _IO_ARGTYPES + _SHAPE_ARGTYPES
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("cheeta_ipm_riccati_single", "cheeta_ipm_riccati_fleet"):
+    for name in ("cheeta_ipm_riccati_single", "cheeta_ipm_riccati_fleet",
+                 "cheeta_ipm_riccati_single_timed",
+                 "cheeta_ipm_riccati_fleet_timed"):
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = _INT
@@ -125,6 +129,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cheeta_ipm_smem_floats.restype = _LL
     lib.cheeta_ipm_factor_floats.argtypes = [ctypes.POINTER(_INT)]
     lib.cheeta_ipm_factor_floats.restype = _LL
+    for name in ("cheeta_ipm_riccati_single_occupancy",
+                 "cheeta_ipm_riccati_fleet_occupancy"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_INT, _INT, _LL, ctypes.POINTER(_INT)]
+        fn.restype = _INT
     lib.cheeta_cuda_error_string.argtypes = [_INT]
     lib.cheeta_cuda_error_string.restype = ctypes.c_char_p
 

@@ -11,17 +11,18 @@ Source note.
   What bounds it on this card: on paper operations (a problem needs ~65
   MFLOP of f32 FMA work against ~0.15 MB of data read once, ~400 FLOP per
   byte, far above the card's f32 ridge of ~20 FLOP/byte); in practice the
-  latency of each block's serial chain, because one block fills a whole SM
-  (its shared memory) with 8 warps.
+  latency of each block's serial chain of barrier phases.
   What the design does about it: the TPU kernel puts 128 problems on the
   vector lanes of one core with the whole tile resident in its large fast
   memory; a Hopper SM has 227 KB, so here the batch is spread over the
-  grid instead — one block per problem, the block's threads sharing the
-  small matrix products, the problem's iterate, Riccati factors and A, B
-  resident in shared memory, the rest of the stage data streamed from
-  global memory / L2 in each sweep. Any batch size >= 1 works; there is no
-  lane multiple to pad to. Plain f32 throughout: the Pallas module records
-  NaN by IPM iteration ~8 with bf16 factors.
+  grid instead, one block per problem, and two blocks share each SM when
+  the batch outnumbers the SMs: the kernel is built for at most 128
+  registers a thread, and the Riccati factors then go to a global scratch
+  buffer (L2-resident, streamed back into shared memory by ``cp.async``
+  stage by stage) so that a block needs ~110 KB of shared memory. While
+  one block waits at a barrier the other issues. Any batch size >= 1
+  works; there is no lane multiple to pad to. Plain f32 throughout: the
+  Pallas module records NaN by IPM iteration ~8 with bf16 factors.
 
 Scope (the centroidal fleet workload): inequality-constrained f32 problems
 whose constraint matrices C/D are shared by the batch, no stage equalities.

@@ -8,23 +8,26 @@ Source note.
   (device code shared with the fleet kernel), CUDA C++ for ``sm_90a``.
   What bounds it on this card: latency, not bytes or operations. One
   problem is ~65 MFLOP of 33x33 / 24x24 block products behind a
-  stage-serial, iteration-serial dependency chain (about 700 barrier
-  phases per IPM iteration), so a single thread block does all of it, and a
-  thread runs its instructions in order: every load that a store or a use waits for costs
-  its full latency. The problem data (~0.26 MB at the centroidal shape)
-  stays in L2 after the first sweep, at ~330 cycles a load.
-  What the design does about it: the iterate, slacks, duals, directions,
-  the Riccati factors and a copy of A, B of all stages stay in shared
-  memory for all iterations (the rest of the stage data does not fit and is
-  re-read from L2 per sweep); products run on 4x4 register tiles, the
-  independent products of a phase side by side on disjoint threads; inputs
-  are declared read-only so their loads start ahead of stores;
-  mat-vecs of the serial passes split each row over 8 lanes to shorten the
-  chain; the kernel is compiled once per memory placement so that no
-  pointer is generic. Arithmetic is plain f32 FMA with IEEE division:
-  barrier conditioning reaches ~1/mu, which rules out TF32 and bf16, and
-  the SPD inverse is the equilibrated Gauss-Jordan without Newton
-  refinement, as in the Pallas kernel.
+  stage-serial, iteration-serial chain of barrier phases, so a single
+  thread block does all of it, and a thread runs its instructions in
+  order: every load that a use waits for costs its full latency.
+  What the design does about it: a stage's data is copied into shared
+  memory by ``cp.async`` while an earlier stage computes; the SPD inverses
+  keep their tableau in registers and take one barrier per pivot; passes
+  over all stages read whole lines of global memory (row products split
+  over lane groups, column products one output per thread); the iterate,
+  directions, rolling P and work matrices stay in shared memory, the
+  Riccati factors too when they fit (else a global scratch buffer);
+  products run on register tiles, independent products of a phase side by
+  side; the shared-memory layout comes with the launch parameters; the
+  batch-1 kernel takes 384 threads, more than its widest product needs, so
+  that the passes over all stages take fewer rounds. The kernel is
+  compiled once per factor placement so that no pointer is generic.
+  ``phase_cycles`` runs the instantiation with section timers.
+  Arithmetic is plain f32 FMA with IEEE division: barrier conditioning
+  reaches ~1/mu, which rules out TF32 and bf16, and the SPD inverse is the
+  equilibrated Gauss-Jordan without Newton refinement, as in the Pallas
+  kernel.
 
 Scope: inequality-constrained f32 OCP-QPs with or without masked stage
 equalities. Where the JAX wrapper warns and falls back to the scan solver
@@ -47,14 +50,25 @@ from cheeta_mpc_tpu_torch.ops.ocpqp import (IpmSettings, _finish, _IpmState,
                                             dtype_clamps, solve_ocp_qp)
 
 EQ_EPS = 1.0  # dual regularization of inactive equality rows
-# Threads per block: at the centroidal shape the independent products of a
-# factorization phase (171 register tiles of 4x4) run side by side.
-THREADS = 256
-# What a launch keeps in shared memory, most first: the Riccati factors and
-# a copy of A, B of all stages; the factors alone; neither (the factors then
-# live in a global scratch buffer). The first that fits is taken.
-PLACEMENTS = (("factors+AB", True, True), ("factors", True, False),
-              ("none", False, False))
+# Threads per block of each kernel (the most its launch bounds allow). The
+# batch-1 kernel is one block on an otherwise idle card, so it takes more
+# threads than its widest product phase needs (171 register tiles at the
+# centroidal shape): the mat-vec passes over all stages take fewer rounds.
+# The fleet kernel takes 256, so that two blocks of at most 128 registers a
+# thread share an SM.
+THREADS = {"cheeta_ipm_riccati_single": 384, "cheeta_ipm_riccati_fleet": 256}
+# Entries of an SPD inverse's n x n tableau that one thread keeps in
+# registers (csrc/ipm_riccati.cuh, kInvMine): nu and nc must satisfy
+# n * n <= INV_ENTRIES_PER_THREAD * threads.
+INV_ENTRIES_PER_THREAD = 8
+# Where a launch keeps the Riccati factors of all stages: in shared memory
+# ("factors") or in a global scratch buffer ("none"); the first that fits
+# the block's share of an SM is taken.
+PLACEMENTS = (("factors", True), ("none", False))
+# The section timers' phase classes, in the order the kernel writes them
+# (csrc/ipm_riccati.cuh, PhaseClass); the kernel adds the whole launch last.
+PHASE_CLASSES = ("inverse", "products", "sweeps", "gradients", "bulk",
+                 "stage_loads", "elementwise")
 
 
 def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
@@ -64,7 +78,14 @@ def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
     equilibrated pivots are O(1)), the pivot row scaled by the pivot's
     reciprocal as the kernels do, and deliberately no Newton refinement:
     at the ~1/mu conditioning the barrier reaches, the f32 residual of a
-    refinement step cancels catastrophically and makes the inverse worse."""
+    refinement step cancels catastrophically and makes the inverse worse.
+
+    Written on the compact n x n tableau that the kernels keep in one
+    warp's registers (csrc/ipm_riccati.cuh::warp_spd_inverse_n): after
+    pivot j, slot c > j holds column c of the left block and slot c <= j
+    column n + c of the right block of ``[S | I]``. Those are exactly the
+    columns that pivot j changes, so the operations and their order are
+    those of the elimination on the full ``n x 2n`` tableau."""
     n = M.shape[-1]
     if n == 0:
         return M
@@ -72,13 +93,18 @@ def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
     s = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1),
                                 min=1e-30))
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
-    Ms = s[..., :, None] * M * s[..., None, :]
-    Ag = torch.cat([Ms, eye.expand(Ms.shape)], dim=-1)  # (..., n, 2n)
+    T = s[..., :, None] * M * s[..., None, :]
     for j in range(n):
-        row_j = Ag[..., j:j + 1, :] * (1.0 / Ag[..., j:j + 1, j:j + 1])
-        colm = Ag[..., :, j:j + 1] - eye[:, j:j + 1]
-        Ag = Ag - colm * row_j
-    return s[..., :, None] * Ag[..., :, n:] * s[..., None, :]
+        ipiv = 1.0 / T[..., j:j + 1, j:j + 1]
+        colm = T[..., :, j:j + 1] - eye[:, j:j + 1]
+        # Slot j turns into right column n + j, which holds e_j and whose
+        # pivot-row entry is 1 * ipiv.
+        row = T[..., j:j + 1, :] * ipiv
+        row = torch.cat([row[..., :j], ipiv, row[..., j + 1:]], dim=-1)
+        T = torch.cat([T[..., :j], eye[:, j:j + 1].expand(colm.shape),
+                       T[..., j + 1:]], dim=-1)
+        T = T - colm * row
+    return s[..., :, None] * T * s[..., None, :]
 
 
 def _masked_eq(data: OcpQpData) -> OcpQpData:
@@ -127,33 +153,53 @@ def tensor_pointers(named, dev, batch: Optional[int]):
     return ptrs, strides
 
 
-def shared_memory_plan(lib, shape, iters: int, device):
+def blocks_per_sm_wanted(entry: str, batch: Optional[int], device) -> int:
+    """Blocks the launch should fit on one SM: two for a fleet with more
+    problems than the card has SMs (one block's barrier waits are then
+    filled by the other's work), one otherwise (a problem's latency is
+    shortest with its factors in shared memory)."""
+    if entry != "cheeta_ipm_riccati_fleet" or batch is None:
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 2 if batch > sms else 1
+
+
+def shared_memory_plan(lib, shape, iters: int, device, blocks_per_sm=1):
     """``(placement, dims, bytes)`` for a problem of ``shape = (N, nx, nu,
-    ng, nc)``: the first of ``PLACEMENTS`` whose dynamic shared memory the
-    device grants a block, the dims array the launchers take, and the
-    bytes. Raises if even the smallest does not fit."""
-    # What a block may opt in to (232,448 bytes on sm_90).
-    limit = getattr(torch.cuda.get_device_properties(device),
-                    "shared_memory_per_block_optin", 232448)
-    for placement, in_shared, ab in PLACEMENTS:
-        dims = (ctypes.c_int * 7)(*shape, iters, int(ab))
-        smem = 4 * lib.cheeta_ipm_smem_floats(dims, int(in_shared))
-        if smem <= limit:
-            return placement, dims, smem
+    ng, nc)``: the first of ``PLACEMENTS`` whose dynamic shared memory
+    lets ``blocks_per_sm`` blocks share an SM (else, one block), the dims
+    array the launchers take, and the bytes. Raises if even the smallest
+    does not fit one block."""
+    props = torch.cuda.get_device_properties(device)
+    # What a block may opt in to (232,448 bytes on sm_90), and what an SM
+    # holds for all its blocks (233,472, of which 1 KB per block is the
+    # system's).
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for want in sorted({blocks_per_sm, 1}, reverse=True):
+        limit = min(optin, per_sm // want - 1024)
+        for placement, in_shared in PLACEMENTS:
+            dims = (ctypes.c_int * 6)(*shape, iters)
+            smem = 4 * lib.cheeta_ipm_smem_floats(dims, int(in_shared))
+            if smem <= limit:
+                return placement, dims, smem
     N, nx, nu, ng, nc = shape
     raise RuntimeError(
         f"the kernel needs {smem} bytes of shared memory per block for "
         f"N={N}, nx={nx}, nu={nu}, ng={ng}, nc={nc} even with the Riccati "
-        f"factors in global memory; the device offers {limit}")
+        f"factors in global memory; the device offers {optin}")
 
 
 def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
-                      batch: Optional[int], gains: bool):
+                      batch: Optional[int], gains: bool,
+                      timers: Optional[torch.Tensor] = None):
     """Check the tensors, allocate outputs and launch one of the two IPM
     kernels on the current stream. ``batch`` is None for an unbatched
     problem; otherwise every tensor either leads with ``batch`` or has no
-    batch dimension (shared by all problems). Returns the dict of raw
-    output tensors. Does not synchronize."""
+    batch dimension (shared by all problems). ``timers``, an int64 tensor
+    of ``(blocks, len(PHASE_CLASSES) + 1)``, selects the instantiation with
+    section timers (:func:`phase_cycles`). Returns the dict of raw output
+    tensors. Does not synchronize."""
     from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
 
     dyn, cost, con, eq = data.dyn, data.cost, data.con, data.eq
@@ -170,6 +216,11 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
     if nc:
         named += [("eq.C", eq.C, (N, nc, nx)), ("eq.D", eq.D, (N, nc, nu)),
                   ("eq.e", eq.e, (N, nc)), ("eq.mask", eq.mask, (N, nc))]
+    nmax, threads = max(nu, nc), THREADS[entry]
+    _check(nmax * nmax <= INV_ENTRIES_PER_THREAD * threads,
+           f"nu={nu}, nc={nc}: the kernel's SPD inverse keeps "
+           f"{INV_ENTRIES_PER_THREAD} tableau entries per thread, so "
+           f"max(nu, nc)^2 must be <= {INV_ENTRIES_PER_THREAD * threads}")
     ptrs, strides = tensor_pointers(named, dev, batch)
     ptrs += [None] * (18 - len(ptrs))
     strides += [0] * (18 - len(strides))
@@ -202,21 +253,82 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
     params = (ctypes.c_float * 7)(s.tau, s.mu0, s.s0_min, s.reg, EQ_EPS,
                                   s.w_max, s.mu_tol)
     placement, dims, smem = shared_memory_plan(
-        lib, (N, nx, nu, ng, nc), int(s.iters), dev)
+        lib, (N, nx, nu, ng, nc), int(s.iters), dev,
+        blocks_per_sm_wanted(entry, batch, dev))
     scratch, scratch_stride = None, 0
     if placement == "none":
         scratch_stride = lib.cheeta_ipm_factor_floats(dims)
         scratch = torch.empty(nb * scratch_stride, **kw)
     with torch.cuda.device(dev):
-        code = getattr(lib, entry)(
+        code = getattr(lib, entry if timers is None else entry + "_timed")(
             (ctypes.c_void_p * 18)(*ptrs), (ctypes.c_longlong * 18)(*strides),
             (ctypes.c_void_p * 11)(*optrs),
             (ctypes.c_longlong * 11)(*ostrides),
             None if scratch is None else scratch.data_ptr(), scratch_stride,
-            dims, params, nb, THREADS, smem,
+            None if timers is None else timers.data_ptr(),
+            dims, params, nb, threads, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, code, entry)
     return out
+
+
+def _entry_data(entry: str, data: OcpQpData):
+    """(data as the entry's kernel takes it, batch or None)."""
+    if entry == "cheeta_ipm_riccati_single":
+        return _masked_eq(data), None
+    return data, data.dx0.shape[0]
+
+
+def phase_cycles(entry: str, data: OcpQpData,
+                 settings: IpmSettings) -> dict:
+    """One extra launch of ``entry`` (``"cheeta_ipm_riccati_single"`` or
+    ``"cheeta_ipm_riccati_fleet"``) in its timed instantiation: thread 0 of
+    every block charges the cycles of each barrier phase to its class.
+    Returns the cycles per class summed over the blocks, each class's share
+    of the summed whole-kernel cycles, and the whole kernel's cycles of the
+    slowest block. Not counted in the solvers' launch counters."""
+    data, batch = _entry_data(entry, data)
+    nb = 1 if batch is None else batch
+    timers = torch.zeros((nb, len(PHASE_CLASSES) + 1), dtype=torch.int64,
+                         device=data.dx0.device)
+    launch_ipm_kernel(entry, data, settings, batch,
+                      gains=entry == "cheeta_ipm_riccati_single",
+                      timers=timers)
+    t = timers.cpu()
+    tot = t.sum(dim=0).tolist()
+    whole = max(1, tot[-1])
+    return {"cycles": dict(zip(PHASE_CLASSES, tot[:-1])),
+            "share": {c: round(v / whole, 4)
+                      for c, v in zip(PHASE_CLASSES, tot[:-1])},
+            "kernel_cycles_max_block": int(t[:, -1].max()),
+            "blocks": nb}
+
+
+def launch_occupancy(entry: str, data: OcpQpData,
+                     settings: IpmSettings) -> dict:
+    """What the card makes of ``entry``'s launch at this problem's shape:
+    the placement, threads and shared bytes per block, resident blocks per
+    SM, registers and spill bytes per thread."""
+    from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
+    data, batch = _entry_data(entry, data)
+    lib = load_library()
+    eq = data.eq
+    shape = (data.dyn.horizon, data.dyn.nx, data.dyn.nu, data.con.ng,
+             0 if eq is None else eq.nc)
+    s = dtype_clamps(settings, torch.float32)
+    dev = data.dx0.device
+    placement, _, smem = shared_memory_plan(
+        lib, shape, int(s.iters), dev, blocks_per_sm_wanted(entry, batch,
+                                                            dev))
+    res = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        check_launch(lib, getattr(lib, entry + "_occupancy")(
+            int(dict(PLACEMENTS)[placement]), THREADS[entry], smem, res),
+            entry + " occupancy")
+    return {"placement": placement, "threads": THREADS[entry],
+            "shared_bytes": smem,
+            "blocks_per_sm": res[0], "registers": res[1],
+            "spill_bytes": res[2]}
 
 
 def solve_ocp_qp_kernel(data: OcpQpData,

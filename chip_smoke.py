@@ -485,9 +485,9 @@ def main() -> int:
     err_k1 = compare_solutions(s1, p1, True, "K1, centroidal QP")
 
     # Seeded instances that reach the other code paths: stage equalities at
-    # a small shape; the centroidal widths at a horizon whose A, B no
-    # longer fit beside the factors; the legged shape, whose factors spill
-    # to the global scratch buffer. Six iterations bring mu to about 5e-4.
+    # a small shape (factors in shared memory); the centroidal widths at
+    # horizon 18; the legged shape, whose factors go to the global scratch
+    # buffer. Six iterations bring mu to about 5e-4.
     # Further on, the barrier Hessian of this random family is numerically
     # singular in f32 at the wide shapes: the last factorization, whose step
     # the guard rejects, leaves non-finite gains in either executor.
@@ -503,7 +503,7 @@ def main() -> int:
         others[name] = compare_solutions(sk, pk, True, name)
         placements[name] = placement_of(qp, ipm_e)
     check(sorted({name for name, _ in placements.values()})
-          == sorted(n for n, _, _ in single_mod.PLACEMENTS),
+          == sorted(n for n, _ in single_mod.PLACEMENTS),
           f"the instances do not reach every placement: {placements}")
 
     qpf = contig(solver.initial_qp(*many))
@@ -793,12 +793,51 @@ def main() -> int:
         qpl, [s3.dx, s3.du, *tensors_of(s3.gains)], flops3)
     (b4, by4), bytes4 = bound(
         qplf, [s4.dx, s4.du, s4.gains.K, s4.gains.k], flops4)
+    # K1 at the legged pyramid shape and K4 at the small fleet, from the
+    # same shapes and this run's tensors.
+    spyr = k1(qpp, ipm_pyr)
+    s4s = k4(qpls, reg=leg_reg)
+    torch.cuda.synchronize()
+    flops1p = ipm_flops(*shape_of(qpp), qpp.con.ng, qpp.eq.nc,
+                        PYRAMID_IPM_ITERS)
+    flops4s = LEGGED_FLEET_SMALL * eq_flops(*shape_of(qpls), qpls.eq.nc)
+    (b1p, by1p), bytes1p = bound(
+        qpp, [spyr.dx, spyr.du, spyr.s_l, spyr.s_u, spyr.lam_l, spyr.lam_u,
+              *tensors_of(spyr.gains)], flops1p)
+    (b4s, by4s), bytes4s = bound(
+        qpls, [s4s.dx, s4s.du, s4s.gains.K, s4s.gains.k], flops4s)
     emit({"phase": "bounds", "k1": {"bytes": bytes1, "flops": flops1},
+          "k1_legged_pyramid": {"bytes": bytes1p, "flops": flops1p,
+                                "bound_ms": b1p, "bound_by": by1p},
           "k2": {"bytes": bytes2, "flops": flops2},
           "k3": {"bytes": bytes3, "flops": flops3},
           "k4": {"bytes": bytes4, "flops": flops4},
+          f"k4_batch{LEGGED_FLEET_SMALL}": {
+              "bytes": bytes4s, "flops": flops4s, "bound_ms": b4s,
+              "bound_by": by4s},
           "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
                     "f32_flops": F32_FLOPS}})
+
+    # Phase 11: inside K1 and K2. One extra timed launch per shape (section
+    # timers: cycles of thread 0 per class of barrier phase), and what the
+    # card makes of each launch shape.
+    shapes = (("k1_centroidal", "cheeta_ipm_riccati_single", qp1, ipm),
+              ("k1_legged_pyramid", "cheeta_ipm_riccati_single", qpp,
+               ipm_pyr),
+              (f"k2_batch{FLEET}", "cheeta_ipm_riccati_fleet", qpf, ipm))
+    phases = {name: single_mod.phase_cycles(entry, qp, st)
+              for name, entry, qp, st in shapes}
+    emit({"phase": "kernel_phases", "card": card, **phases})
+    occupancy = {name: single_mod.launch_occupancy(entry, qp, st)
+                 for name, entry, qp, st in shapes}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (name, _, qp, _), occ in zip(shapes, occupancy.values()):
+        blocks = qp.dx0.shape[0] if qp.dx0.dim() == 2 else 1
+        occ["waves"] = -(-blocks // (sms * occ["blocks_per_sm"]))
+    emit({"phase": "occupancy", "sms": sms, **occupancy})
+    check(occupancy[f"k2_batch{FLEET}"]["blocks_per_sm"] >= 2,
+          f"K2 at batch {FLEET} holds fewer than two blocks per SM: "
+          f"{occupancy[f'k2_batch{FLEET}']}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [
@@ -808,7 +847,9 @@ def main() -> int:
          "launches": launches_k1,
          "max_abs_err": max(err_k1["dx"], err_k1["du"]),
          "ms": t_k1, "plain_ms": t_k1_plain, "bound_ms": b1,
-         "bound_by": by1, "library_ms": None},
+         "bound_by": by1, "library_ms": None,
+         "k1_legged_pyramid_ms": t_k1_pyr,
+         "k1_legged_pyramid_bound_ms": b1p},
         {"name": "ipm_riccati_fleet", "route": "cuda",
          "source": "cheeta_mpc_tpu_torch/csrc/ipm_riccati_fleet.cu",
          "replaces": "cheeta_mpc_tpu/ops/pallas_ipm_batch.py:620",
@@ -829,7 +870,9 @@ def main() -> int:
          "launches": launches_k4,
          "max_abs_err": max(err_k4["dx"], err_k4["du"]),
          "ms": t_k4, "plain_ms": t_k4_plain, "bound_ms": b4,
-         "bound_by": by4, "library_ms": None},
+         "bound_by": by4, "library_ms": None,
+         f"k4_batch{LEGGED_FLEET_SMALL}_ms": t_k4_small,
+         f"k4_batch{LEGGED_FLEET_SMALL}_bound_ms": b4s},
     ]})
     # The run uses one card, whatever the host holds.
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -151,6 +151,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                              batch=None, gains=True)
 
 
+@pytest.mark.parametrize("nu, nc", [(56, 0), (8, 56)])
+def test_wrappers_refuse_inverses_wider_than_the_block_holds(nu, nc):
+    """The kernels' SPD inverse keeps its n x n tableau in the registers of
+    the block's threads (8 entries each, 384 threads): a wider nu or nc
+    raises before any pointer is taken."""
+    N, nx, ng = 2, 3, 2
+    z = np.zeros
+    d = {"A": z((N, nx, nx)), "B": z((N, nx, nu)), "b": z((N, nx)),
+         "Q": z((N + 1, nx, nx)), "q": z((N + 1, nx)), "R": z((N, nu, nu)),
+         "r": z((N, nu)), "S": z((N, nu, nx)), "dx0": z(nx),
+         "C": z((N + 1, ng, nx)), "D": z((N + 1, ng, nu)),
+         "lg": z((N + 1, ng)), "ug": z((N + 1, ng)), "mask": z((N + 1, ng))}
+    if nc:
+        d["eq"] = {"C": z((N, nc, nx)), "D": z((N, nc, nu)), "e": z((N, nc)),
+                   "mask": z((N, nc))}
+    qp = convert.qp_data_from_numpy(d, dtype="float32", device="cpu")
+    with pytest.raises(ValueError, match="tableau entries per thread"):
+        tk.launch_ipm_kernel("cheeta_ipm_riccati_single", qp, IpmSettings(),
+                             batch=None, gains=True)
+
+
+def test_only_a_fleet_larger_than_the_card_asks_for_two_blocks_per_sm():
+    """K1 and an unbatched launch keep one block per SM (the factors stay
+    in shared memory where they fit); no device is queried for them."""
+    assert tk.blocks_per_sm_wanted("cheeta_ipm_riccati_single", None,
+                                   "cpu") == 1
+    assert tk.blocks_per_sm_wanted("cheeta_ipm_riccati_fleet", None,
+                                   "cpu") == 1
+
+
 def test_build_reports_a_missing_compiler(monkeypatch, tmp_path):
     """No nvcc: the build raises with the reason; nothing falls back."""
     monkeypatch.setenv("NVCC", str(tmp_path / "no-such-nvcc"))

@@ -126,6 +126,68 @@ def test_gauss_jordan_inverse_matches_the_pallas_one():
     assert tk.spd_inverse_gj(torch.zeros(2, 0, 0)).shape == (2, 0, 0)
 
 
+def _barrier_like_spd(n):
+    """An SPD matrix conditioned like the barrier-weighted Hessian: a
+    well-conditioned core S (condition 6-8) scaled by D = diag of 1..1e3,
+    so cond(M) ~ 1e6. Returns M and the diagonal of D."""
+    rng = np.random.default_rng(100 + n)
+    S = random_psd(rng, n, min_eig=0.5)
+    d = np.logspace(0, 3, n)
+    rng.shuffle(d)
+    return d[:, None] * S * d[None, :], d
+
+
+def _equilibrated_err(got, ref, d):
+    """Largest error of D X D relative to the largest entry of D X_ref D:
+    the error the elimination itself makes, independent of the scaling."""
+    scaled = d[:, None] * (got - ref) * d[None, :]
+    return np.abs(scaled).max() / np.abs(d[:, None] * ref * d[None, :]).max()
+
+
+def _pallas_spd_inverse(M):
+    """``spd_inverse_kernel`` inside a ``pallas_call``, interpret mode."""
+    from jax.experimental import pallas as pl
+    n = M.shape[0]
+
+    def kernel(m_ref, o_ref):
+        o_ref[...] = spd_inverse_kernel(m_ref[...], n)
+
+    return np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(M.shape, M.dtype),
+        interpret=True)(jnp.asarray(M)))
+
+
+@pytest.mark.parametrize("n", [16, 24])
+def test_gauss_jordan_inverse_at_barrier_conditioning_f64(n):
+    """The compact-tableau elimination (the kernels' register layout) in f64
+    against ``np.linalg.inv`` at cond ~1e6 (nc = 16 and nu = 24 of the
+    legged and centroidal shapes): 4e-15 measured, 1e-12 allowed."""
+    M, d = _barrier_like_spd(n)
+    assert np.linalg.cond(M) > 5e5
+    got = tk.spd_inverse_gj(torch.as_tensor(M)).numpy()
+    err = _equilibrated_err(got, np.linalg.inv(M), d)
+    print(f"n={n}: f64 vs np.linalg.inv {err:.2e}")
+    assert err <= 1e-12
+
+
+@pytest.mark.parametrize("n", [16, 24])
+def test_gauss_jordan_inverse_matches_pallas_interpret_at_barrier_conditioning(
+        n):
+    """The same in f32 against the Pallas kernel's ``spd_inverse_kernel`` run
+    in a ``pallas_call`` in interpret mode, at cond ~1e6. The Pallas one
+    divides by the pivot where the kernels multiply by its reciprocal, so
+    they differ by f32 rounding: 1.6e-7 (n=16) and 2.5e-7 (n=24) measured,
+    5e-6 allowed; both stay within the same bound of the f64 inverse."""
+    M, d = _barrier_like_spd(n)
+    M32 = M.astype(np.float32)
+    ref = _pallas_spd_inverse(M32)
+    got = tk.spd_inverse_gj(torch.as_tensor(M32)).numpy()
+    err = _equilibrated_err(got, ref, d)
+    err64 = _equilibrated_err(got, np.linalg.inv(M), d)
+    print(f"n={n}: f32 vs Pallas interpret {err:.2e}, vs f64 {err64:.2e}")
+    assert err <= 5e-6 and err64 <= 5e-6
+
+
 def _shared_cd_batch(seed, batch=4):
     """``batch`` problems with one set of constraint matrices C/D; each
     problem's bounds are placed around its own reference rollout, so every
