@@ -122,14 +122,55 @@ __device__ __forceinline__ void rows(int n_out, Part part, Epi epi,
   __syncthreads();
 }
 
-// M x Nn outputs c(i, j) = sum_{l < Kd} a(i, l) * b(l, j), each thread a
-// TM x TN register tile, so that an inner step costs TM + TN loads for
-// TM * TN multiply-adds instead of two loads for one; init(i, j) is what
-// the sum starts from. A tile's rows and
-// columns are strided over the output (ti + r * TI, tj + c * TJ), so that
-// neighbouring threads read neighbouring words. Thread ``t`` of ``nth``
-// takes tiles t, t + nth, ...; store(i, j, sum) runs once per output.
-// The sum may come in two segments with operands of their own (a2, b2 over
+// The sums of one TM x TN register tile of c(i, j) = init(i, j) +
+// sum_{l < Kd} a(i, l) * b(l, j) + sum_{l < Kd2} a2(i, l) * b2(l, j), the
+// tile's rows ti + r * TI and columns tj + c * TJ (clamped to the last row
+// and column), so that an inner step costs TM + TN loads for TM * TN
+// multiply-adds and neighbouring threads read neighbouring words.
+template <int TM, int TN, class FI, class FA, class FB, class FA2, class FB2>
+__device__ __forceinline__ void tile_sums(float (&acc)[TM][TN], int ti, int TI,
+                                          int M, int tj, int TJ, int Nn,
+                                          FI init, int Kd, FA a, FB b, int Kd2,
+                                          FA2 a2, FB2 b2) {
+  int ri[TM], cj[TN];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) ri[r] = min(ti + r * TI, M - 1);
+#pragma unroll
+  for (int c = 0; c < TN; ++c) cj[c] = min(tj + c * TJ, Nn - 1);
+  // The sums start from init(i, j): its loads (often from global memory)
+  // are all in flight before the first of them is needed.
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = init(ri[r], cj[c]);
+  for (int l = 0; l < Kd; ++l) {
+    float av[TM], bv[TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) av[r] = a(ri[r], l);
+#pragma unroll
+    for (int c = 0; c < TN; ++c) bv[c] = b(l, cj[c]);
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  }
+  for (int l = 0; l < Kd2; ++l) {
+    float av[TM], bv[TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) av[r] = a2(ri[r], l);
+#pragma unroll
+    for (int c = 0; c < TN; ++c) bv[c] = b2(l, cj[c]);
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  }
+}
+
+// M x Nn outputs c(i, j) = init(i, j) + sum_{l < Kd} a(i, l) * b(l, j),
+// each thread a TM x TN register tile (tile_sums). Thread ``t`` of ``nth``
+// takes tiles t, t + nth, ...; store(i, j, sum) runs once per output. The
+// sum may come in two segments with operands of their own (a2, b2 over
 // Kd2 terms after a, b over Kd), accumulated into the same registers.
 template <int TM, int TN, class FI, class FA, class FB, class FA2, class FB2,
           class FS>
@@ -140,40 +181,9 @@ __device__ __forceinline__ void tile_product2(int t, int nth, int M, int Nn,
   const int TI = (M + TM - 1) / TM, TJ = (Nn + TN - 1) / TN;
   for (int tile = t; tile < TI * TJ; tile += nth) {
     const int ti = tile / TJ, tj = tile % TJ;
-    int ri[TM], cj[TN];
     float acc[TM][TN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) ri[r] = min(ti + r * TI, M - 1);
-#pragma unroll
-    for (int c = 0; c < TN; ++c) cj[c] = min(tj + c * TJ, Nn - 1);
-    // The sums start from init(i, j): its loads (often from global memory)
-    // are all in flight before the first of them is needed.
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) acc[r][c] = init(ri[r], cj[c]);
-    for (int l = 0; l < Kd; ++l) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) av[r] = a(ri[r], l);
-#pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = b(l, cj[c]);
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    for (int l = 0; l < Kd2; ++l) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) av[r] = a2(ri[r], l);
-#pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = b2(l, cj[c]);
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
+    tile_sums<TM, TN>(acc, ti, TI, M, tj, TJ, Nn, init, Kd, a, b, Kd2, a2,
+                      b2);
 #pragma unroll
     for (int r = 0; r < TM; ++r)
 #pragma unroll
@@ -181,6 +191,49 @@ __device__ __forceinline__ void tile_product2(int t, int nth, int M, int Nn,
         if (ti + r * TI < M && tj + c * TJ < Nn)
           store(ti + r * TI, tj + c * TJ, acc[r][c]);
   }
+}
+
+// The same for an M x M result that is symmetric in exact arithmetic
+// (A' P A, C' W C, H' G^-1 H): T x T tiles, and only those on and above the
+// diagonal of the tile grid, since tile (tj, ti) holds the mirror image of
+// tile (ti, tj). Each output above the diagonal is computed once and stored
+// at (i, j) and (j, i), so the result is exactly symmetric and needs no
+// symmetrization, and the block does little more than half the work.
+template <int T, class FI, class FA, class FB, class FA2, class FB2, class FS>
+__device__ __forceinline__ void sym_tile_product2(int t, int nth, int M,
+                                                  FI init, int Kd, FA a, FB b,
+                                                  int Kd2, FA2 a2, FB2 b2,
+                                                  FS store) {
+  const int TI = (M + T - 1) / T;
+  for (int tile = t; tile < TI * (TI + 1) / 2; tile += nth) {
+    int ti = 0, rem = tile;  // row ti of the tile grid holds TI - ti tiles
+    while (rem >= TI - ti) {
+      rem -= TI - ti;
+      ++ti;
+    }
+    const int tj = ti + rem;
+    float acc[T][T];
+    tile_sums<T, T>(acc, ti, TI, M, tj, TI, M, init, Kd, a, b, Kd2, a2, b2);
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+#pragma unroll
+      for (int c = 0; c < T; ++c) {
+        const int i = ti + r * TI, j = tj + c * TI;
+        // A diagonal tile holds both (i, j) and (j, i): its upper half is
+        // stored, mirrored.
+        if (i < M && j < M && (ti < tj || r <= c)) {
+          store(i, j, acc[r][c]);
+          if (i != j) store(j, i, acc[r][c]);
+        }
+      }
+  }
+}
+
+template <int T, class FI, class FA, class FB, class FS>
+__device__ __forceinline__ void sym_tile_product(int t, int nth, int M,
+                                                 int Kd, FI init, FA a, FB b,
+                                                 FS store) {
+  sym_tile_product2<T>(t, nth, M, init, Kd, a, b, 0, a, b, store);
 }
 
 template <int TM, int TN, class FI, class FA, class FB, class FS>
@@ -192,6 +245,11 @@ __device__ __forceinline__ void tile_product(int t, int nth, int M, int Nn,
 
 __device__ __forceinline__ int tiles_of(int M, int Nn, int TM, int TN) {
   return ((M + TM - 1) / TM) * ((Nn + TN - 1) / TN);
+}
+// Tiles of sym_tile_product2 for an M x M result.
+__device__ __forceinline__ int sym_tiles_of(int M, int T) {
+  const int TI = (M + T - 1) / T;
+  return TI * (TI + 1) / 2;
 }
 
 // Splits the block over the independent products of one phase: when all

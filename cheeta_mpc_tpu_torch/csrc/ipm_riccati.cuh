@@ -32,7 +32,10 @@
 //   right-hand sides are recomputed where they are read.
 // - Products run on register tiles, independent products of a phase side
 //   by side on disjoint threads; the small products of the equality
-//   elimination one output per thread.
+//   elimination one output per thread. Without equalities P's products
+//   (C' W C + A' P A, then H' K) are computed only on and above the
+//   diagonal and stored mirrored, so P needs no symmetrization phase; with
+//   them the elimination adds terms and P is symmetrized after it.
 // - Code size counts: the kernel is one long sequence of different phases,
 //   so code that is fetched once per stage (an unrolled elimination, say)
 //   evicts the products' code from the instruction cache.
@@ -190,30 +193,40 @@ struct IpmArgs {
 
 // Thread 0 charges the cycles since the last mark to a phase class. Marks
 // sit right after the barrier that ends a phase, so a mark's interval is
-// the phase's length as the block sees it. Without kOn it is empty, so an
-// untimed kernel carries no timing code.
+// the phase's length as the block sees it. The untimed clock is empty, so
+// an untimed kernel carries no timing code.
 template <bool kOn>
 struct PhaseClock {
-  long long t0, last, acc[kNumPhases];
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void write(long long*) {}
+};
+
+// The sums, the start and the last mark live in static shared memory, not
+// in registers: the timed kernel then gets the registers, and spills, of
+// the untimed one.
+template <>
+struct PhaseClock<true> {
+  long long* acc;  // kNumPhases sums, then the start, then the last mark
   __device__ __forceinline__ PhaseClock() {
-    if (kOn && threadIdx.x == 0) {
-      t0 = last = clock64();
-#pragma unroll
+    __shared__ long long slots[kNumPhases + 2];
+    acc = slots;
+    if (threadIdx.x == 0) {
+      const long long t = clock64();
       for (int c = 0; c < kNumPhases; ++c) acc[c] = 0;
+      acc[kNumPhases] = acc[kNumPhases + 1] = t;
     }
   }
   __device__ __forceinline__ void mark(int cls) {
-    if (kOn && threadIdx.x == 0) {
+    if (threadIdx.x == 0) {
       const long long t = clock64();
-      acc[cls] += t - last;
-      last = t;
+      acc[cls] += t - acc[kNumPhases + 1];
+      acc[kNumPhases + 1] = t;
     }
   }
   __device__ __forceinline__ void write(long long* out) {
-    if (kOn && threadIdx.x == 0 && out) {
-#pragma unroll
+    if (threadIdx.x == 0 && out) {
       for (int c = 0; c < kNumPhases; ++c) out[c] = acc[c];
-      out[kNumPhases] = clock64() - t0;
+      out[kNumPhases] = clock64() - acc[kNumPhases];
     }
   }
 };
@@ -288,14 +301,17 @@ __device__ __forceinline__ float inv_scale(float diag) {
 // kFacShared says at compile time whether the Riccati factors live in
 // shared memory (else: the global scratch buffer). A pointer that may be
 // either is a generic pointer, and every access through it pays 64-bit
-// address arithmetic and the generic load path.
-template <bool kFacShared, bool kTimed>
+// address arithmetic and the generic load path. kEq says whether the
+// problem has stage equalities (nc > 0): without them the elimination's
+// code is compiled out, since code that a launch never runs still takes
+// registers and instruction cache from the phases it does run.
+template <bool kFacShared, bool kEq, bool kTimed>
 static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
   PhaseClock<kTimed> clk;
   const IpmDims d = a.d;
   const IpmParams pa = a.p;
   const int N = d.N, N1 = d.N + 1, nx = d.nx, nu = d.nu, ng = d.ng,
-            nc = d.nc;
+            nc = kEq ? d.nc : 0;
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long prob = blockIdx.x;
   // The layout lives in the launch parameters, so its offsets are constant
@@ -565,15 +581,17 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
       In QN = gQ + (size_t)N * nx * nx;
       In CN = gC + (size_t)N * ng * nx;
       const float* wN = w + N * ng;
-      tile_product<4, 4>(
-          tid, nt, nx, nx, ng,
-          [&](int i, int j) { return 0.5f * (QN[i * nx + j] + QN[j * nx + i]); },
-          [&](int i, int l) { return CN[l * nx + i] * wN[l]; },
-          [&](int l, int j) { return CN[l * nx + j]; },
-          [&](int i, int j, float v) {
-            Pn[i * nx + j] = v;
-            if (gP) gP[(size_t)N * nx * nx + i * nx + j] = v;
-          });
+      auto init = [&](int i, int j) {
+        return 0.5f * (QN[i * nx + j] + QN[j * nx + i]);
+      };
+      auto a = [&](int i, int l) { return CN[l * nx + i] * wN[l]; };
+      auto b = [&](int l, int j) { return CN[l * nx + j]; };
+      auto store = [&](int i, int j, float v) {
+        Pn[i * nx + j] = v;
+        if (gP) gP[(size_t)N * nx * nx + i * nx + j] = v;
+      };
+      if constexpr (kEq) tile_product<4, 4>(tid, nt, nx, nx, ng, init, a, b, store);
+      else sym_tile_product<3>(tid, nt, nx, ng, init, a, b, store);
       cp_async_wait_all();
       __syncthreads();
       clk.mark(kPhProducts);
@@ -620,7 +638,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
       clk.mark(kPhProducts);
       {  // G = Rb + B'PB + reg I ; H = Sb + B'PA ; Pk = Qb + A'PA (+ H'K later)
         const int n_g = tiles_of(nu, nu, 4, 4), n_h = tiles_of(nu, nx, 4, 4),
-                  n_p = tiles_of(nx, nx, 4, 4);
+                  n_p = kEq ? tiles_of(nx, nx, 4, 4) : sym_tiles_of(nx, 3);
         PhaseSplit ph(n_g + n_h + n_p);
         // The sum runs over the ng weighted constraint rows, then over nx.
         tile_product2<4, 4>(
@@ -647,14 +665,26 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
               Hs[i * nx + j] = v;
               if (!kFacShared && nc) fH[(size_t)k * nu * nx + i * nx + j] = v;
             });
-        tile_product2<4, 4>(
-            ph.first(n_p), ph.step(n_p), nx, nx,
-            [&](int i, int j) { return Qk[i * nx + j]; },
-            ng, [&](int i, int l) { return Ck[l * nx + i] * wk[l]; },
-            [&](int l, int j) { return Ck[l * nx + j]; },
-            nx, [&](int i, int l) { return Ak[l * nx + i]; },
-            [&](int l, int j) { return PA[l * nx + j]; },
-            [&](int i, int j, float v) { Pk[i * nx + j] = v; });
+        // With equalities P is symmetrized after the elimination, so its
+        // products stay whole; without them they are computed on and above
+        // the diagonal and stored mirrored (no symmetrization phase).
+        auto a = [&](int i, int l) { return Ck[l * nx + i] * wk[l]; };
+        auto b = [&](int l, int j) { return Ck[l * nx + j]; };
+        auto a2 = [&](int i, int l) { return Ak[l * nx + i]; };
+        auto b2 = [&](int l, int j) { return PA[l * nx + j]; };
+        auto store = [&](int i, int j, float v) { Pk[i * nx + j] = v; };
+        if constexpr (kEq)
+          tile_product2<4, 4>(
+              ph.first(n_p), ph.step(n_p), nx, nx,
+              [&](int i, int j) { return Qk[i * nx + j]; }, ng, a, b, nx, a2,
+              b2, store);
+        else
+          sym_tile_product2<3>(
+              ph.first(n_p), ph.step(n_p), nx,
+              [&](int i, int j) {
+                return 0.5f * (Qk[i * nx + j] + Qk[j * nx + i]);
+              },
+              ng, a, b, nx, a2, b2, store);
       }
       __syncthreads();
       clk.mark(kPhProducts);
@@ -662,8 +692,8 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
         float* Gis = kFacShared ? Gik : Gt;
         spd_inverse(G, Gis, nu, sv, rowb, colb);
         clk.mark(kPhInverse);
-        // K and H'K have the short sums (nu terms): smaller tiles, so that
-        // more threads share them and each chain is shorter.
+        // K and H'K have the short sums (nu terms): small tiles, so that
+        // more threads share them and each chain is short.
         tile_product<2, 2>(
             tid, nt, nu, nx, nu,
             [&](int, int) { return 0.f; },
@@ -677,14 +707,13 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
           for (int i = tid; i < nu * nu; i += nt) Gik[i] = Gis[i];
         __syncthreads();
         clk.mark(kPhProducts);
-        tile_product<2, 4>(
-            tid, nt, nx, nx, nu,
+        // Pk += H'K, symmetric as it is stored: no symmetrization phase.
+        sym_tile_product<3>(
+            tid, nt, nx, nu,
             [&](int i, int j) { return Pk[i * nx + j]; },
             [&](int i, int l) { return Hs[l * nx + i]; },
             [&](int l, int j) { return Ks[l * nx + j]; },
             [&](int i, int j, float v) { Pk[i * nx + j] = v; });
-        __syncthreads();
-        clk.mark(kPhProducts);
       } else {
         // The equality elimination: small products (nc rows), one output
         // per thread, every operand in shared memory.
@@ -780,13 +809,13 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
         }
         __syncthreads();
         clk.mark(kPhProducts);
-      }
-      for (int idx = tid; idx < nx * nx; idx += nt) {  // Pk <- sym(Pk)
-        const int i = idx / nx, j = idx % nx;
-        if (i < j) {
-          const float v = 0.5f * (Pk[idx] + Pk[j * nx + i]);
-          Pk[idx] = v;
-          Pk[j * nx + i] = v;
+        for (int idx = tid; idx < nx * nx; idx += nt) {  // Pk <- sym(Pk)
+          const int i = idx / nx, j = idx % nx;
+          if (i < j) {
+            const float v = 0.5f * (Pk[idx] + Pk[j * nx + i]);
+            Pk[idx] = v;
+            Pk[j * nx + i] = v;
+          }
         }
       }
       cp_async_wait_all();  // the next stage's slot

@@ -4,24 +4,20 @@
 // written. Counterpart of ops/pallas_ipm_batch.py::_fleet_kernel.
 #include "ipm_launch.inl"
 
-extern "C" int cheeta_ipm_riccati_fleet(
-    const void* const* in, const long long* in_stride, void* const* out,
-    const long long* out_stride, void* scratch, long long scratch_stride,
-    long long* timers, const int* dims, const float* params, int batch,
-    int threads, long long smem_bytes, void* stream) {
-  if (dims[4] != 0 || threads > 256 || timers != nullptr)
+// timers: null launches the plain kernel, else the one with section timers.
+extern "C" int cheeta_ipm_riccati_fleet(CHEETA_IPM_LAUNCH_PARAMS) {
+  if (dims[4] != 0 || threads > cheeta::kFleetThreads)
     return (int)cudaErrorInvalidValue;
-  return cheeta::launch(
-      CHEETA_PICK_KERNEL(cheeta::ipm_riccati_fleet_kernel, scratch == nullptr,
-                         false),
-      in, in_stride, out, out_stride, scratch, scratch_stride, timers, dims,
-      params, batch, threads, smem_bytes, stream);
+  if (timers != nullptr)
+    return cheeta::launch_fleet_timed(CHEETA_IPM_LAUNCH_ARGS);
+  return cheeta::launch(CHEETA_PICK_FLEET(scratch == nullptr, false),
+                        CHEETA_IPM_LAUNCH_ARGS);
 }
 
 extern "C" int cheeta_ipm_riccati_fleet_occupancy(
-    int factors_in_smem, int threads, long long smem_bytes, int* out) {
-  return cheeta::occupancy(
-      CHEETA_PICK_KERNEL(cheeta::ipm_riccati_fleet_kernel,
-                         factors_in_smem != 0, false),
-      threads, smem_bytes, out);
+    int factors_in_smem, int has_eq, int threads, long long smem_bytes,
+    int* out) {
+  if (has_eq) return (int)cudaErrorInvalidValue;
+  return cheeta::occupancy(CHEETA_PICK_FLEET(factors_in_smem != 0, false),
+                           threads, smem_bytes, out);
 }

@@ -1,17 +1,9 @@
-// K2 with section timers: the instantiation that phase_cycles launches
-// (ops/cuda_ipm_riccati.py); see ipm_riccati_fleet.cu.
+// K2's instantiation with section timers, launched by
+// cheeta_ipm_riccati_fleet (ipm_riccati_fleet.cu) when it is given a timer
+// buffer.
 #include "ipm_launch.inl"
 
-extern "C" int cheeta_ipm_riccati_fleet_timed(
-    const void* const* in, const long long* in_stride, void* const* out,
-    const long long* out_stride, void* scratch, long long scratch_stride,
-    long long* timers, const int* dims, const float* params, int batch,
-    int threads, long long smem_bytes, void* stream) {
-  if (dims[4] != 0 || threads > 256 || timers == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return cheeta::launch(
-      CHEETA_PICK_KERNEL(cheeta::ipm_riccati_fleet_kernel, scratch == nullptr,
-                         true),
-      in, in_stride, out, out_stride, scratch, scratch_stride, timers, dims,
-      params, batch, threads, smem_bytes, stream);
+int cheeta::launch_fleet_timed(CHEETA_IPM_LAUNCH_PARAMS) {
+  return cheeta::launch(CHEETA_PICK_FLEET(scratch == nullptr, true),
+                        CHEETA_IPM_LAUNCH_ARGS);
 }

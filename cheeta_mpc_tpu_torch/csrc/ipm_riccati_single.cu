@@ -4,26 +4,32 @@
 // iteration. Counterpart of ops/pallas_ipm_riccati.py::_ipm_kernel.
 #include "ipm_launch.inl"
 
-extern "C" int cheeta_ipm_riccati_single(
-    const void* const* in, const long long* in_stride, void* const* out,
-    const long long* out_stride, void* scratch, long long scratch_stride,
-    long long* timers, const int* dims, const float* params, int batch,
-    int threads, long long smem_bytes, void* stream) {
-  if (batch != 1 || threads > cheeta::kSingleThreads || timers != nullptr)
+// timers: null launches the plain kernel, else the one with section timers.
+extern "C" int cheeta_ipm_riccati_single(CHEETA_IPM_LAUNCH_PARAMS) {
+  if (batch != 1 || threads > cheeta::kSingleThreads)
     return (int)cudaErrorInvalidValue;
+  if (timers != nullptr)
+    return cheeta::launch_single_timed(CHEETA_IPM_LAUNCH_ARGS);
   return cheeta::launch(
-      CHEETA_PICK_KERNEL(cheeta::ipm_riccati_single_kernel, scratch == nullptr,
-                         false),
-      in, in_stride, out, out_stride, scratch, scratch_stride, timers, dims,
-      params, batch, threads, smem_bytes, stream);
+      CHEETA_PICK_SINGLE(scratch == nullptr, dims[4] > 0, false),
+      CHEETA_IPM_LAUNCH_ARGS);
 }
 
 extern "C" int cheeta_ipm_riccati_single_occupancy(
-    int factors_in_smem, int threads, long long smem_bytes, int* out) {
+    int factors_in_smem, int has_eq, int threads, long long smem_bytes,
+    int* out) {
   return cheeta::occupancy(
-      CHEETA_PICK_KERNEL(cheeta::ipm_riccati_single_kernel,
-                         factors_in_smem != 0, false),
-      threads, smem_bytes, out);
+      CHEETA_PICK_SINGLE(factors_in_smem != 0, has_eq != 0, false), threads,
+      smem_bytes, out);
+}
+
+// What a kernel is built for, into out[0..2]: threads per block, blocks
+// per SM, and the SPD inverse's tableau entries per thread (max(nu, nc)^2
+// must not exceed them times the threads). fleet: 0 = K1, 1 = K2.
+extern "C" void cheeta_ipm_launch_limits(int fleet, int* out) {
+  out[0] = fleet ? cheeta::kFleetThreads : cheeta::kSingleThreads;
+  out[1] = fleet ? cheeta::kFleetBlocksPerSm : 1;
+  out[2] = cheeta::kInvMine;
 }
 
 // Shared-memory floats of one block: the iterate, work arrays and stage

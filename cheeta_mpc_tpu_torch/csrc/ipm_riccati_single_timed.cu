@@ -1,17 +1,10 @@
-// K1 with section timers: the instantiation that phase_cycles launches
-// (ops/cuda_ipm_riccati.py); see ipm_riccati_single.cu.
+// K1's instantiation with section timers, launched by
+// cheeta_ipm_riccati_single (ipm_riccati_single.cu) when it is given a
+// timer buffer.
 #include "ipm_launch.inl"
 
-extern "C" int cheeta_ipm_riccati_single_timed(
-    const void* const* in, const long long* in_stride, void* const* out,
-    const long long* out_stride, void* scratch, long long scratch_stride,
-    long long* timers, const int* dims, const float* params, int batch,
-    int threads, long long smem_bytes, void* stream) {
-  if (batch != 1 || threads > cheeta::kSingleThreads || timers == nullptr)
-    return (int)cudaErrorInvalidValue;
+int cheeta::launch_single_timed(CHEETA_IPM_LAUNCH_PARAMS) {
   return cheeta::launch(
-      CHEETA_PICK_KERNEL(cheeta::ipm_riccati_single_kernel, scratch == nullptr,
-                         true),
-      in, in_stride, out, out_stride, scratch, scratch_stride, timers, dims,
-      params, batch, threads, smem_bytes, stream);
+      CHEETA_PICK_SINGLE(scratch == nullptr, dims[4] > 0, true),
+      CHEETA_IPM_LAUNCH_ARGS);
 }

@@ -113,9 +113,7 @@ _EQ_LAUNCH_ARGTYPES = _IO_ARGTYPES + _SHAPE_ARGTYPES
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("cheeta_ipm_riccati_single", "cheeta_ipm_riccati_fleet",
-                 "cheeta_ipm_riccati_single_timed",
-                 "cheeta_ipm_riccati_fleet_timed"):
+    for name in ("cheeta_ipm_riccati_single", "cheeta_ipm_riccati_fleet"):
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = _INT
@@ -129,10 +127,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cheeta_ipm_smem_floats.restype = _LL
     lib.cheeta_ipm_factor_floats.argtypes = [ctypes.POINTER(_INT)]
     lib.cheeta_ipm_factor_floats.restype = _LL
+    lib.cheeta_ipm_launch_limits.argtypes = [_INT, ctypes.POINTER(_INT)]
+    lib.cheeta_ipm_launch_limits.restype = None
     for name in ("cheeta_ipm_riccati_single_occupancy",
                  "cheeta_ipm_riccati_fleet_occupancy"):
         fn = getattr(lib, name)
-        fn.argtypes = [_INT, _INT, _LL, ctypes.POINTER(_INT)]
+        fn.argtypes = [_INT, _INT, _INT, _LL, ctypes.POINTER(_INT)]
         fn.restype = _INT
     lib.cheeta_cuda_error_string.argtypes = [_INT]
     lib.cheeta_cuda_error_string.restype = ctypes.c_char_p

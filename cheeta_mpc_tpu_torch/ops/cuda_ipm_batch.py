@@ -15,12 +15,12 @@ Source note.
   What the design does about it: the TPU kernel puts 128 problems on the
   vector lanes of one core with the whole tile resident in its large fast
   memory; a Hopper SM has 227 KB, so here the batch is spread over the
-  grid instead, one block per problem, and two blocks share each SM when
-  the batch outnumbers the SMs: the kernel is built for at most 128
-  registers a thread, and the Riccati factors then go to a global scratch
-  buffer (L2-resident, streamed back into shared memory by ``cp.async``
-  stage by stage) so that a block needs ~110 KB of shared memory. While
-  one block waits at a barrier the other issues. Any batch size >= 1
+  grid instead, one block per problem, and two blocks share each SM: the
+  kernel is built for at most 128 registers a thread, and the Riccati
+  factors go to a global scratch buffer (L2-resident, streamed back into
+  shared memory by ``cp.async`` stage by stage) so that a block needs ~110
+  KB of shared memory. While one block waits at a barrier the other
+  issues. Any batch size >= 1
   works; there is no lane multiple to pad to. Plain f32 throughout: the
   Pallas module records NaN by IPM iteration ~8 with bf16 factors.
 

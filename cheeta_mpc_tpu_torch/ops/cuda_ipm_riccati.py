@@ -50,20 +50,11 @@ from cheeta_mpc_tpu_torch.ops.ocpqp import (IpmSettings, _finish, _IpmState,
                                             dtype_clamps, solve_ocp_qp)
 
 EQ_EPS = 1.0  # dual regularization of inactive equality rows
-# Threads per block of each kernel (the most its launch bounds allow). The
-# batch-1 kernel is one block on an otherwise idle card, so it takes more
-# threads than its widest product phase needs (171 register tiles at the
-# centroidal shape): the mat-vec passes over all stages take fewer rounds.
-# The fleet kernel takes 256, so that two blocks of at most 128 registers a
-# thread share an SM.
-THREADS = {"cheeta_ipm_riccati_single": 384, "cheeta_ipm_riccati_fleet": 256}
-# Entries of an SPD inverse's n x n tableau that one thread keeps in
-# registers (csrc/ipm_riccati.cuh, kInvMine): nu and nc must satisfy
-# n * n <= INV_ENTRIES_PER_THREAD * threads.
-INV_ENTRIES_PER_THREAD = 8
+FLEET_ENTRY = "cheeta_ipm_riccati_fleet"
 # Where a launch keeps the Riccati factors of all stages: in shared memory
 # ("factors") or in a global scratch buffer ("none"); the first that fits
-# the block's share of an SM is taken.
+# the block's share of an SM (csrc/ipm_launch.inl: one block for K1, two
+# for K2) is taken.
 PLACEMENTS = (("factors", True), ("none", False))
 # The section timers' phase classes, in the order the kernel writes them
 # (csrc/ipm_riccati.cuh, PhaseClass); the kernel adds the whole launch last.
@@ -153,41 +144,40 @@ def tensor_pointers(named, dev, batch: Optional[int]):
     return ptrs, strides
 
 
-def blocks_per_sm_wanted(entry: str, batch: Optional[int], device) -> int:
-    """Blocks the launch should fit on one SM: two for a fleet with more
-    problems than the card has SMs (one block's barrier waits are then
-    filled by the other's work), one otherwise (a problem's latency is
-    shortest with its factors in shared memory)."""
-    if entry != "cheeta_ipm_riccati_fleet" or batch is None:
-        return 1
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 2 if batch > sms else 1
+def launch_limits(lib, entry: str):
+    """``(threads, blocks_per_sm, inverse_entries_per_thread)`` that the
+    library builds ``entry``'s kernel for (csrc/ipm_launch.inl): threads per
+    block, blocks that share an SM, and the SPD inverse's tableau entries
+    that one thread keeps in registers."""
+    out = (ctypes.c_int * 3)()
+    lib.cheeta_ipm_launch_limits(int(entry == FLEET_ENTRY), out)
+    return tuple(out)
 
 
-def shared_memory_plan(lib, shape, iters: int, device, blocks_per_sm=1):
-    """``(placement, dims, bytes)`` for a problem of ``shape = (N, nx, nu,
-    ng, nc)``: the first of ``PLACEMENTS`` whose dynamic shared memory
-    lets ``blocks_per_sm`` blocks share an SM (else, one block), the dims
-    array the launchers take, and the bytes. Raises if even the smallest
-    does not fit one block."""
+def shared_memory_plan(lib, entry: str, shape, iters: int, device):
+    """``(placement, dims, bytes)`` for ``entry``'s kernel on a problem of
+    ``shape = (N, nx, nu, ng, nc)``: the first of ``PLACEMENTS`` whose
+    dynamic shared memory fits the block's share of an SM (the kernel's
+    blocks per SM), the dims array the launchers take, and the bytes.
+    Raises if even the smallest does not fit."""
     props = torch.cuda.get_device_properties(device)
     # What a block may opt in to (232,448 bytes on sm_90), and what an SM
     # holds for all its blocks (233,472, of which 1 KB per block is the
     # system's).
     optin = getattr(props, "shared_memory_per_block_optin", 232448)
     per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-    for want in sorted({blocks_per_sm, 1}, reverse=True):
-        limit = min(optin, per_sm // want - 1024)
-        for placement, in_shared in PLACEMENTS:
-            dims = (ctypes.c_int * 6)(*shape, iters)
-            smem = 4 * lib.cheeta_ipm_smem_floats(dims, int(in_shared))
-            if smem <= limit:
-                return placement, dims, smem
+    blocks_per_sm = launch_limits(lib, entry)[1]
+    limit = min(optin, per_sm // blocks_per_sm - 1024)
+    for placement, in_shared in PLACEMENTS:
+        dims = (ctypes.c_int * 6)(*shape, iters)
+        smem = 4 * lib.cheeta_ipm_smem_floats(dims, int(in_shared))
+        if smem <= limit:
+            return placement, dims, smem
     N, nx, nu, ng, nc = shape
     raise RuntimeError(
-        f"the kernel needs {smem} bytes of shared memory per block for "
-        f"N={N}, nx={nx}, nu={nu}, ng={ng}, nc={nc} even with the Riccati "
-        f"factors in global memory; the device offers {optin}")
+        f"{entry} needs {smem} bytes of shared memory per block for N={N}, "
+        f"nx={nx}, nu={nu}, ng={ng}, nc={nc} even with the Riccati factors "
+        f"in global memory; {blocks_per_sm} block(s) per SM leave {limit}")
 
 
 def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
@@ -216,12 +206,14 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
     if nc:
         named += [("eq.C", eq.C, (N, nc, nx)), ("eq.D", eq.D, (N, nc, nu)),
                   ("eq.e", eq.e, (N, nc)), ("eq.mask", eq.mask, (N, nc))]
-    nmax, threads = max(nu, nc), THREADS[entry]
-    _check(nmax * nmax <= INV_ENTRIES_PER_THREAD * threads,
-           f"nu={nu}, nc={nc}: the kernel's SPD inverse keeps "
-           f"{INV_ENTRIES_PER_THREAD} tableau entries per thread, so "
-           f"max(nu, nc)^2 must be <= {INV_ENTRIES_PER_THREAD * threads}")
     ptrs, strides = tensor_pointers(named, dev, batch)
+    lib = load_library()
+    threads, _, per_thread = launch_limits(lib, entry)
+    nmax = max(nu, nc)
+    _check(nmax * nmax <= per_thread * threads,
+           f"nu={nu}, nc={nc}: the kernel's SPD inverse keeps {per_thread} "
+           f"tableau entries per thread in {threads} threads, so "
+           f"max(nu, nc)^2 must be <= {per_thread * threads}")
     ptrs += [None] * (18 - len(ptrs))
     strides += [0] * (18 - len(strides))
 
@@ -248,19 +240,17 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
     ostrides = [out[n][0].numel() if n in out and batch is not None else 0
                 for n in order]
 
-    lib = load_library()
     s = dtype_clamps(settings, torch.float32)
     params = (ctypes.c_float * 7)(s.tau, s.mu0, s.s0_min, s.reg, EQ_EPS,
                                   s.w_max, s.mu_tol)
     placement, dims, smem = shared_memory_plan(
-        lib, (N, nx, nu, ng, nc), int(s.iters), dev,
-        blocks_per_sm_wanted(entry, batch, dev))
+        lib, entry, (N, nx, nu, ng, nc), int(s.iters), dev)
     scratch, scratch_stride = None, 0
     if placement == "none":
         scratch_stride = lib.cheeta_ipm_factor_floats(dims)
         scratch = torch.empty(nb * scratch_stride, **kw)
     with torch.cuda.device(dev):
-        code = getattr(lib, entry if timers is None else entry + "_timed")(
+        code = getattr(lib, entry)(
             (ctypes.c_void_p * 18)(*ptrs), (ctypes.c_longlong * 18)(*strides),
             (ctypes.c_void_p * 11)(*optrs),
             (ctypes.c_longlong * 11)(*ostrides),
@@ -274,26 +264,46 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
 
 def _entry_data(entry: str, data: OcpQpData):
     """(data as the entry's kernel takes it, batch or None)."""
-    if entry == "cheeta_ipm_riccati_single":
+    if entry != FLEET_ENTRY:
         return _masked_eq(data), None
     return data, data.dx0.shape[0]
 
 
 def phase_cycles(entry: str, data: OcpQpData,
                  settings: IpmSettings) -> dict:
-    """One extra launch of ``entry`` (``"cheeta_ipm_riccati_single"`` or
-    ``"cheeta_ipm_riccati_fleet"``) in its timed instantiation: thread 0 of
-    every block charges the cycles of each barrier phase to its class.
-    Returns the cycles per class summed over the blocks, each class's share
-    of the summed whole-kernel cycles, and the whole kernel's cycles of the
-    slowest block. Not counted in the solvers' launch counters."""
+    """Three launches of ``entry`` (``"cheeta_ipm_riccati_single"`` or
+    ``"cheeta_ipm_riccati_fleet"``) in its timed instantiation, in which
+    thread 0 of every block charges the cycles of each barrier phase to its
+    class, alternating with three plain launches on the same inputs (after
+    one timed launch that loads the instantiation). Returns the
+    cycles per class summed over the blocks, each class's share of the
+    summed whole-kernel cycles, the whole kernel's cycles of the slowest
+    block, and the median ms (CUDA events) of the timed and of the plain
+    launches: their ratio is what the timers cost. Not counted in the
+    solvers' launch counters."""
     data, batch = _entry_data(entry, data)
     nb = 1 if batch is None else batch
     timers = torch.zeros((nb, len(PHASE_CLASSES) + 1), dtype=torch.int64,
                          device=data.dx0.device)
-    launch_ipm_kernel(entry, data, settings, batch,
-                      gains=entry == "cheeta_ipm_riccati_single",
-                      timers=timers)
+
+    def launch(timed: bool) -> float:
+        if timed:
+            timers.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch_ipm_kernel(entry, data, settings, batch,
+                          gains=entry != FLEET_ENTRY,
+                          timers=timers if timed else None)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    launch(True)  # the timed instantiation's first launch loads it
+    ms = {True: [], False: []}
+    for _ in range(3):
+        for timed in (True, False):
+            ms[timed].append(launch(timed))
     t = timers.cpu()
     tot = t.sum(dim=0).tolist()
     whole = max(1, tot[-1])
@@ -301,7 +311,9 @@ def phase_cycles(entry: str, data: OcpQpData,
             "share": {c: round(v / whole, 4)
                       for c, v in zip(PHASE_CLASSES, tot[:-1])},
             "kernel_cycles_max_block": int(t[:, -1].max()),
-            "blocks": nb}
+            "blocks": nb,
+            "timed_ms": sorted(ms[True])[1],
+            "untimed_ms": sorted(ms[False])[1]}
 
 
 def launch_occupancy(entry: str, data: OcpQpData,
@@ -310,22 +322,22 @@ def launch_occupancy(entry: str, data: OcpQpData,
     the placement, threads and shared bytes per block, resident blocks per
     SM, registers and spill bytes per thread."""
     from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
-    data, batch = _entry_data(entry, data)
+    data, _ = _entry_data(entry, data)
     lib = load_library()
     eq = data.eq
-    shape = (data.dyn.horizon, data.dyn.nx, data.dyn.nu, data.con.ng,
-             0 if eq is None else eq.nc)
+    nc = 0 if eq is None else eq.nc
+    shape = (data.dyn.horizon, data.dyn.nx, data.dyn.nu, data.con.ng, nc)
     s = dtype_clamps(settings, torch.float32)
     dev = data.dx0.device
-    placement, _, smem = shared_memory_plan(
-        lib, shape, int(s.iters), dev, blocks_per_sm_wanted(entry, batch,
-                                                            dev))
+    placement, _, smem = shared_memory_plan(lib, entry, shape, int(s.iters),
+                                            dev)
+    threads = launch_limits(lib, entry)[0]
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         check_launch(lib, getattr(lib, entry + "_occupancy")(
-            int(dict(PLACEMENTS)[placement]), THREADS[entry], smem, res),
+            int(dict(PLACEMENTS)[placement]), int(nc > 0), threads, smem, res),
             entry + " occupancy")
-    return {"placement": placement, "threads": THREADS[entry],
+    return {"placement": placement, "threads": threads,
             "shared_bytes": smem,
             "blocks_per_sm": res[0], "registers": res[1],
             "spill_bytes": res[2]}

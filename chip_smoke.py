@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -428,11 +429,16 @@ def main() -> int:
 
     # Phase 2: build.
     build.load_library()
-    ptxas = [ln for ln in build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # ptxas's registers and spills of every instantiation, by source.
+    ptxas, source = {}, None
+    for ln in build.build_log.splitlines():
+        if ln.startswith("$ ") and " -c " in ln:
+            source = pathlib.Path(ln.split(" -c ")[1].split()[0]).name
+        elif source and ("registers" in ln or "spill" in ln):
+            ptxas.setdefault(source, []).append(ln.split(": ")[-1].strip())
     emit({"phase": "build", "seconds": build.build_seconds,
           "sources": sorted(p.name for p in build.CSRC_DIR.glob("*.cu*")),
-          "ptxas": ptxas[:12]})
+          "ptxas": ptxas})
     check(build.build_seconds is not None,
           "the kernels were not built from the sources in this run")
 
@@ -475,7 +481,8 @@ def main() -> int:
         shape = (qp.dyn.horizon, qp.dyn.nx, qp.dyn.nu, qp.con.ng,
                  0 if eq is None else eq.nc)
         name, _, nbytes = single_mod.shared_memory_plan(
-            build.load_library(), shape, settings.iters, dev)
+            build.load_library(), "cheeta_ipm_riccati_single", shape,
+            settings.iters, dev)
         return name, nbytes
 
     # Phase 3: each kernel against its plain version on the card.
@@ -818,15 +825,18 @@ def main() -> int:
           "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
                     "f32_flops": F32_FLOPS}})
 
-    # Phase 11: inside K1 and K2. One extra timed launch per shape (section
-    # timers: cycles of thread 0 per class of barrier phase), and what the
-    # card makes of each launch shape.
+    # Phase 11: inside K1 and K2. Timed launches per shape (section timers:
+    # cycles of thread 0 per class of barrier phase) beside plain ones, so
+    # that the timers' own cost shows, and what the card makes of each
+    # launch shape.
     shapes = (("k1_centroidal", "cheeta_ipm_riccati_single", qp1, ipm),
               ("k1_legged_pyramid", "cheeta_ipm_riccati_single", qpp,
                ipm_pyr),
               (f"k2_batch{FLEET}", "cheeta_ipm_riccati_fleet", qpf, ipm))
     phases = {name: single_mod.phase_cycles(entry, qp, st)
               for name, entry, qp, st in shapes}
+    for ph in phases.values():
+        ph["timed_over_untimed"] = ph["timed_ms"] / ph["untimed_ms"]
     emit({"phase": "kernel_phases", "card": card, **phases})
     occupancy = {name: single_mod.launch_occupancy(entry, qp, st)
                  for name, entry, qp, st in shapes}

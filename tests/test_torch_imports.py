@@ -10,6 +10,7 @@ import jax before any test runs.
 import ast
 import importlib
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -151,11 +152,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                              batch=None, gains=True)
 
 
+class _StubLibrary:
+    """Answers what the wrappers ask the kernels' library before a launch,
+    with the numbers that ``csrc/ipm_launch.inl`` builds for; launches
+    nothing. ``floats`` is the shared memory of a block with the factors
+    in it and without them."""
+
+    LIMITS = {0: (384, 1, 8), 1: (256, 2, 8)}  # threads, blocks/SM, entries
+
+    def __init__(self, floats=(41272, 28384)):
+        self.floats = floats
+
+    def cheeta_ipm_launch_limits(self, fleet, out):
+        out[:] = self.LIMITS[fleet]
+
+    def cheeta_ipm_smem_floats(self, dims, factors_in_smem):
+        return self.floats[0 if factors_in_smem else 1]
+
+
 @pytest.mark.parametrize("nu, nc", [(56, 0), (8, 56)])
-def test_wrappers_refuse_inverses_wider_than_the_block_holds(nu, nc):
+def test_wrappers_refuse_inverses_wider_than_the_block_holds(nu, nc,
+                                                             monkeypatch):
     """The kernels' SPD inverse keeps its n x n tableau in the registers of
-    the block's threads (8 entries each, 384 threads): a wider nu or nc
-    raises before any pointer is taken."""
+    the block's threads (8 entries each, 384 threads, as the library
+    reports them): a wider nu or nc raises before anything is allocated or
+    launched."""
+    monkeypatch.setattr(build, "load_library", _StubLibrary)
     N, nx, ng = 2, 3, 2
     z = np.zeros
     d = {"A": z((N, nx, nx)), "B": z((N, nx, nu)), "b": z((N, nx)),
@@ -172,13 +194,31 @@ def test_wrappers_refuse_inverses_wider_than_the_block_holds(nu, nc):
                              batch=None, gains=True)
 
 
-def test_only_a_fleet_larger_than_the_card_asks_for_two_blocks_per_sm():
-    """K1 and an unbatched launch keep one block per SM (the factors stay
-    in shared memory where they fit); no device is queried for them."""
-    assert tk.blocks_per_sm_wanted("cheeta_ipm_riccati_single", None,
-                                   "cpu") == 1
-    assert tk.blocks_per_sm_wanted("cheeta_ipm_riccati_fleet", None,
-                                   "cpu") == 1
+@pytest.mark.parametrize("entry, floats, placement", [
+    ("cheeta_ipm_riccati_single", (41272, 28384), "factors"),
+    ("cheeta_ipm_riccati_fleet", (41272, 28384), "none"),
+    ("cheeta_ipm_riccati_fleet", (41272, 30000), None),
+])
+def test_shared_memory_plan_fits_the_blocks_per_sm_the_kernel_is_built_for(
+        entry, floats, placement, monkeypatch):
+    """One rule for both kernels: the first placement whose block fits the
+    SM's shared memory divided by the blocks per SM that the library
+    builds the kernel for. K1 (one block) keeps the centroidal factors in
+    shared memory; K2 (two blocks) keeps them in the scratch buffer at any
+    batch, and a shape whose block overflows half an SM raises."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(
+                            shared_memory_per_block_optin=232448,
+                            shared_memory_per_multiprocessor=233472))
+    shape = (10, 33, 24, 32, 0)
+    lib = _StubLibrary(floats)
+    if placement is None:
+        with pytest.raises(RuntimeError, match="2 block.s. per SM leave 115712"):
+            tk.shared_memory_plan(lib, entry, shape, 10, "cuda")
+        return
+    name, dims, nbytes = tk.shared_memory_plan(lib, entry, shape, 10, "cuda")
+    assert (name, nbytes) == (placement, 4 * floats[name == "none"])
+    assert list(dims) == [*shape, 10]
 
 
 def test_build_reports_a_missing_compiler(monkeypatch, tmp_path):
