@@ -1,27 +1,20 @@
-// K4: the same equality-constrained Riccati solve over a batch, one thread
-// block per problem (grid = batch, any batch >= 1); every input is per
-// problem. Writes dx, du, K, k; no P, p. Counterpart of
-// ops/pallas_eq_batch.py::_eq_fleet_kernel.
-#include "eq_riccati.cuh"
-
-namespace cheeta {
-
-__global__ void eq_riccati_fleet_kernel(const EqArgs args) {
-  extern __shared__ float smem[];
-  eq_lqr_solve(args, smem);
-}
-
-}  // namespace cheeta
-
+// K4: the same equality-constrained Riccati solve over a batch (any batch
+// >= 1); every input is per problem or shared by the batch. Writes dx, du,
+// K, k; no P, p. Counterpart of ops/pallas_eq_batch.py::_eq_fleet_kernel.
 #include "eq_launch.inl"
 
-extern "C" int cheeta_eq_riccati_fleet(
-    const void* const* in, const long long* in_stride, void* const* out,
-    const long long* out_stride, const int* dims, const float* params,
-    int batch, int threads, long long smem_bytes, void* stream) {
+// timers: null launches the plain kernel, else the one with section timers.
+extern "C" int cheeta_eq_riccati_fleet(CHEETA_EQ_LAUNCH_PARAMS) {
   if (out[4] != nullptr || out[5] != nullptr)  // no P, p from this kernel
     return (int)cudaErrorInvalidValue;
-  return cheeta::launch_eq(cheeta::eq_riccati_fleet_kernel, in, in_stride,
-                           out, out_stride, dims, params, batch, threads,
-                           smem_bytes, stream);
+  if (timers != nullptr)
+    return cheeta::launch_eq_fleet_timed(CHEETA_EQ_LAUNCH_ARGS);
+  return cheeta::launch_eq(cheeta::eq_riccati_fleet_kernel<false>,
+                           cheeta::kEqFleetWarps, CHEETA_EQ_LAUNCH_ARGS);
+}
+
+extern "C" int cheeta_eq_riccati_fleet_occupancy(long long smem_bytes,
+                                                 int* out) {
+  return cheeta::occupancy(cheeta::eq_riccati_fleet_kernel<false>,
+                           32 * cheeta::kEqFleetWarps, smem_bytes, out);
 }

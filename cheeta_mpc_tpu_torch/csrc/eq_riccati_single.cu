@@ -1,34 +1,36 @@
-// K3: the equality-constrained Riccati solve of ONE problem, one thread
-// block; writes dx, du and the gains K, k, P, p. Counterpart of
+// K3: the equality-constrained Riccati solve of ONE problem; writes dx, du
+// and the gains K, k, P, p. Counterpart of
 // ops/pallas_riccati.py::_eq_lqr_kernel.
-#include "eq_riccati.cuh"
-
-namespace cheeta {
-
-__global__ void eq_riccati_single_kernel(const EqArgs args) {
-  extern __shared__ float smem[];
-  eq_lqr_solve(args, smem);
-}
-
-}  // namespace cheeta
-
 #include "eq_launch.inl"
 
-extern "C" int cheeta_eq_riccati_single(
-    const void* const* in, const long long* in_stride, void* const* out,
-    const long long* out_stride, const int* dims, const float* params,
-    int batch, int threads, long long smem_bytes, void* stream) {
+// timers: null launches the plain kernel, else the one with section timers.
+extern "C" int cheeta_eq_riccati_single(CHEETA_EQ_LAUNCH_PARAMS) {
   if (batch != 1 || out[4] == nullptr || out[5] == nullptr)
     return (int)cudaErrorInvalidValue;
-  return cheeta::launch_eq(cheeta::eq_riccati_single_kernel, in, in_stride,
-                           out, out_stride, dims, params, 1, threads,
-                           smem_bytes, stream);
+  if (timers != nullptr)
+    return cheeta::launch_eq_single_timed(CHEETA_EQ_LAUNCH_ARGS);
+  return cheeta::launch_eq(cheeta::eq_riccati_single_kernel<false>,
+                           cheeta::kEqSingleWarps, CHEETA_EQ_LAUNCH_ARGS);
 }
 
-// Shared-memory floats of one block; dims is {N, nx, nu, nc} here and in
-// the launchers.
+extern "C" int cheeta_eq_riccati_single_occupancy(long long smem_bytes,
+                                                  int* out) {
+  return cheeta::occupancy(cheeta::eq_riccati_single_kernel<false>,
+                           32 * cheeta::kEqSingleWarps, smem_bytes, out);
+}
+
+// What a kernel is built for, into out[0..1]: threads per team (the
+// threads that solve one problem) and teams per block. fleet: 0 = K3,
+// 1 = K4.
+extern "C" void cheeta_eq_launch_limits(int fleet, int* out) {
+  out[0] = 32 * (fleet ? cheeta::kEqFleetWarps : cheeta::kEqSingleWarps);
+  out[1] = 1;
+}
+
+// Shared-memory floats of one block; dims is {N, nx, nu, nc, stage slots}
+// here and in the launchers.
 extern "C" long long cheeta_eq_smem_floats(const int* dims) {
   return cheeta::make_eq_layout(
-             cheeta::EqDims{dims[0], dims[1], dims[2], dims[3]})
+             cheeta::EqDims{dims[0], dims[1], dims[2], dims[3]}, dims[4])
       .total;
 }

@@ -62,6 +62,7 @@
 #include <math.h>
 
 #include "block_linalg.cuh"
+#include "phase_clock.cuh"
 
 namespace cheeta {
 
@@ -191,46 +192,6 @@ struct IpmArgs {
 
 #ifdef __CUDACC__
 
-// Thread 0 charges the cycles since the last mark to a phase class. Marks
-// sit right after the barrier that ends a phase, so a mark's interval is
-// the phase's length as the block sees it. The untimed clock is empty, so
-// an untimed kernel carries no timing code.
-template <bool kOn>
-struct PhaseClock {
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void write(long long*) {}
-};
-
-// The sums, the start and the last mark live in static shared memory, not
-// in registers: the timed kernel then gets the registers, and spills, of
-// the untimed one.
-template <>
-struct PhaseClock<true> {
-  long long* acc;  // kNumPhases sums, then the start, then the last mark
-  __device__ __forceinline__ PhaseClock() {
-    __shared__ long long slots[kNumPhases + 2];
-    acc = slots;
-    if (threadIdx.x == 0) {
-      const long long t = clock64();
-      for (int c = 0; c < kNumPhases; ++c) acc[c] = 0;
-      acc[kNumPhases] = acc[kNumPhases + 1] = t;
-    }
-  }
-  __device__ __forceinline__ void mark(int cls) {
-    if (threadIdx.x == 0) {
-      const long long t = clock64();
-      acc[cls] += t - acc[kNumPhases + 1];
-      acc[kNumPhases + 1] = t;
-    }
-  }
-  __device__ __forceinline__ void write(long long* out) {
-    if (threadIdx.x == 0 && out) {
-      for (int c = 0; c < kNumPhases; ++c) out[c] = acc[c];
-      out[kNumPhases] = clock64() - acc[kNumPhases];
-    }
-  }
-};
-
 constexpr int kInvMine = 8;  // tableau entries per thread: n * n <= 8 * threads
 
 // out = inverse of sym(M), n x n, by the whole block: Jacobi equilibration,
@@ -307,7 +268,7 @@ __device__ __forceinline__ float inv_scale(float diag) {
 // registers and instruction cache from the phases it does run.
 template <bool kFacShared, bool kEq, bool kTimed>
 static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
-  PhaseClock<kTimed> clk;
+  PhaseClock<kTimed, kNumPhases> clk;
   const IpmDims d = a.d;
   const IpmParams pa = a.p;
   const int N = d.N, N1 = d.N + 1, nx = d.nx, nu = d.nu, ng = d.ng,

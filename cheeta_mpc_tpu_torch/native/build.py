@@ -109,7 +109,11 @@ _SHAPE_ARGTYPES = [
 # The interior-point launchers also take the factor scratch, its stride and
 # the section-timer buffer (null: the untimed kernel).
 _LAUNCH_ARGTYPES = _IO_ARGTYPES + [_PTR, _LL, _PTR] + _SHAPE_ARGTYPES
-_EQ_LAUNCH_ARGTYPES = _IO_ARGTYPES + _SHAPE_ARGTYPES
+# The equality-Riccati launchers take the section-timer buffer (null: the
+# untimed kernel) and no thread count: the library sets it.
+_EQ_LAUNCH_ARGTYPES = _IO_ARGTYPES + [
+    _PTR, ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_float),
+    _INT, _LL, _PTR]  # timers, dims, params, batch, smem bytes, stream
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -123,6 +127,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _INT
     lib.cheeta_eq_smem_floats.argtypes = [ctypes.POINTER(_INT)]
     lib.cheeta_eq_smem_floats.restype = _LL
+    lib.cheeta_eq_launch_limits.argtypes = [_INT, ctypes.POINTER(_INT)]
+    lib.cheeta_eq_launch_limits.restype = None
+    for name in ("cheeta_eq_riccati_single_occupancy",
+                 "cheeta_eq_riccati_fleet_occupancy"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_LL, ctypes.POINTER(_INT)]
+        fn.restype = _INT
     lib.cheeta_ipm_smem_floats.argtypes = [ctypes.POINTER(_INT), _INT]
     lib.cheeta_ipm_smem_floats.restype = _LL
     lib.cheeta_ipm_factor_floats.argtypes = [ctypes.POINTER(_INT)]

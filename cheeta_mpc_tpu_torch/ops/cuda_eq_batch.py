@@ -11,15 +11,17 @@ Source note.
   What bounds it on this card: on paper bytes and operations are nearly
   level (a legged problem reads ~1.0 MB once and writes ~0.17 MB against
   ~25 MFLOP of f32 FMA work: about 0.2 ms at batch 512 either way); in
-  practice the latency of each block's stage-serial chain, hidden only as
-  far as several blocks share an SM.
+  practice the latency of each problem's stage-serial chain, hidden only
+  as far as several problems share an SM.
   What the design does about it: the TPU kernel puts 128 problems on the
   vector lanes of one core and streams the stage data through a double
-  buffer; here the batch is spread over the grid, one block per problem,
-  any batch size >= 1 with no lane multiple to pad to, and a block's
-  working set (~43 KB of shared memory, 128 registers a thread) lets two
-  blocks share an SM, whose barrier waits overlap. Stage data is read where
-  it is used, once.
+  buffer; here the batch is spread over the grid, one team of four warps
+  (one thread block) per problem, any batch size >= 1 with no lane
+  multiple to pad to. The device code is the batch-1 kernel's
+  (``ops.cuda_eq_riccati``); a team's ~40 KB of shared memory and 128
+  registers per thread let four problems share an SM, so a fleet of 512
+  legged problems is resident at once on 132 SMs (one wave) and one
+  problem's inverse overlaps the others' products.
 
 Scope: f32, masked stage equalities, no inequality rows, exactly one batch
 dimension; every tensor of the problem either carries the batch dimension or
@@ -36,7 +38,7 @@ import torch
 
 from cheeta_mpc_tpu_torch.core.types import (OcpQpData, OcpQpSolution,
                                              RiccatiGains)
-from cheeta_mpc_tpu_torch.ops.cuda_eq_riccati import (EQ_EPS,
+from cheeta_mpc_tpu_torch.ops.cuda_eq_riccati import (EQ_EPS, FLEET_ENTRY,
                                                       eq_out_of_scope_reason,
                                                       launch_eq_kernel,
                                                       solve_eq_lqr_plain)
@@ -94,7 +96,7 @@ def solve_eq_lqr_fleet(data: OcpQpData, reg: float = 1e-9,
         raise NotImplementedError(f"solve_eq_lqr_fleet: {reason}")
     if data.dx0.device.type == "cpu":
         return solve_eq_lqr_fleet_plain(data, reg, eps)
-    out = launch_eq_kernel("cheeta_eq_riccati_fleet", data, reg, eps,
+    out = launch_eq_kernel(FLEET_ENTRY, data, reg, eps,
                            batch=data.dx0.shape[0], value_function=False)
     solve_eq_lqr_fleet.launches += 1
     return _finish(data, out["dx"], out["du"], out["K"], out["k"])

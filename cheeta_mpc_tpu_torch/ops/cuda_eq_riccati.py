@@ -9,16 +9,31 @@ Source note.
   What bounds it on this card: latency, not bytes or operations. One
   legged problem (N=67, nx=nu=24, nc=16) is ~25 MFLOP of 24x24 / 16x16
   block products over ~1.3 MB of data, both bounds under a microsecond,
-  behind a stage-serial chain of a dozen barrier phases and two
-  Gauss-Jordan eliminations (24 and 16 pivots) per stage.
-  What the design does about it: one thread block; the stage's working set
-  (~43 KB) in shared memory; the independent products of a phase side by
-  side on disjoint threads, on 4x4 register tiles; the vector pass fused
-  into the factorization's phases so it adds no barrier; K and k written
-  to their output arrays in the backward pass and read back by the
-  rollout. Arithmetic is plain f32 FMA (no TF32: a lower-precision product
-  compounds over 67 stages to newtons of force), and the inverse is the
-  PLAIN Gauss-Jordan with the separate add-back, as in the Pallas kernel.
+  behind a stage-serial chain of eleven phases and two Gauss-Jordan
+  eliminations (24 and 16 pivots) per stage.
+  What the design does about it: one team of four warps, its own thread
+  block, solves the problem, so no barrier is wider than the team; the
+  stage's working set (~40 KB) stays in shared memory, and the next stage's
+  A, B, C, D and vectors arrive by ``cp.async`` while this one computes
+  (R, S and Q of the stage at its start, into the arrays their sums grow
+  in). Each inverse runs on one warp's registers: lane c holds column c of
+  the compact Gauss-Jordan tableau, rotated so that the pivot row is
+  always the first register, the pivot column comes by shuffles from the
+  pivot's lane, and no pivot needs a barrier. The products run on 4x4
+  register tiles with 16-byte shared-memory loads, in one routine that
+  every phase calls (the kernel's code stays small enough for the
+  instruction cache); the tiles of a phase's products are dealt over the
+  team so that a warp runs tiles of two products together. The vector
+  pass runs beside the products in the same phases; K and k are written
+  to their outputs as they are formed and streamed back, one step ahead,
+  by the rollout. Arithmetic is plain f32 FMA (no TF32: a lower-precision
+  product compounds over 67 stages to newtons of force), each output
+  summed in one fixed order, so every team size and tile shape gives the
+  same bits; the inverse is the PLAIN Gauss-Jordan with the separate
+  add-back, as in the Pallas kernel (:func:`gj_inverse_compact` mirrors
+  the kernel's compact tableau). ``phase_cycles`` runs the instantiation
+  with section timers, ``launch_occupancy`` reports what the card makes
+  of a launch.
 
 Scope: f32, masked stage equalities (nc >= 1), no inequality rows. What is
 out of scope raises with the reason and is never handed to another
@@ -37,11 +52,16 @@ import torch
 from cheeta_mpc_tpu_torch.core.types import (OcpQpData, OcpQpSolution,
                                              RiccatiGains)
 from cheeta_mpc_tpu_torch.ops.cuda_ipm_riccati import (EQ_EPS, _check,
+                                                       section_times,
                                                        tensor_pointers)
 from cheeta_mpc_tpu_torch.ops.riccati import (_no_inequality_solution,
                                               solve_eq_lqr)
 
-EQ_THREADS = 256  # the widest phase runs 132 register tiles side by side
+SINGLE_ENTRY, FLEET_ENTRY = "cheeta_eq_riccati_single", "cheeta_eq_riccati_fleet"
+# The section timers' phase classes, in the order the kernels write them
+# (csrc/eq_riccati.cuh, EqPhaseClass); the kernel adds the whole launch last.
+PHASE_CLASSES = ("inverse_G", "inverse_Lam", "products", "stage_waits",
+                 "store", "rollout")
 
 
 def gj_inverse_plain(M: torch.Tensor) -> torch.Tensor:
@@ -61,6 +81,33 @@ def gj_inverse_plain(M: torch.Tensor) -> torch.Tensor:
         Ag = Ag - Ag[..., :, j:j + 1] * row_j
         Ag = Ag + eye[:, j:j + 1] * row_j
     return Ag[..., :, n:]
+
+
+def gj_inverse_compact(M: torch.Tensor) -> torch.Tensor:
+    """:func:`gj_inverse_plain` on the compact n x n tableau that the
+    kernels keep in one warp's registers (csrc/eq_riccati.cuh::
+    warp_gj_inverse, one column per lane): before pivot j, slot c holds
+    left column c for c >= j and right column n + c for c < j, the columns
+    that pivot j changes. At pivot j slot j turns into right column n + j,
+    which holds e_j and whose pivot-row entry is 1. Every entry sees the
+    operations of the augmented form in the same order, so the result is
+    the same, bit for bit (tests/test_torch_eq_kernel_plain.py). Like
+    :func:`gj_inverse_plain` it takes M as given; the kernels symmetrize on
+    load, the plain solver before the call."""
+    n = M.shape[-1]
+    if n == 0:
+        return M
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    T = M
+    for j in range(n):
+        ipiv = 1.0 / T[..., j:j + 1, j:j + 1]
+        col_is_j = eye[j:j + 1, :].bool()  # (1, n): slot j
+        rv = torch.where(col_is_j, torch.ones_like(ipiv), T[..., j:j + 1, :]) \
+            * ipiv
+        base = torch.where(col_is_j, eye[:, j:j + 1], T)
+        T = base - T[..., :, j:j + 1] * rv
+        T = T + eye[:, j:j + 1] * rv
+    return T
 
 
 def eq_out_of_scope_reason(data: OcpQpData) -> Optional[str]:
@@ -83,13 +130,45 @@ def solve_eq_lqr_plain(data: OcpQpData, reg: float = 1e-9,
     return solve_eq_lqr(data, reg=reg, eps=eps, inverse=gj_inverse_plain)
 
 
+def launch_limits(lib, entry: str):
+    """``(threads_per_team, teams_per_block)`` that the library builds
+    ``entry``'s kernel for (csrc/eq_launch.inl): a team is the threads that
+    solve one problem."""
+    out = (ctypes.c_int * 2)()
+    lib.cheeta_eq_launch_limits(int(entry == FLEET_ENTRY), out)
+    return tuple(out)
+
+
+def shared_memory_plan(lib, data: OcpQpData):
+    """``(dims, bytes)``: the dims array the launchers take (N, nx, nu, nc
+    and the stage slots) and the dynamic shared memory of one block at this
+    problem's shape. Two stage slots (each stage's data streamed one stage
+    ahead) where they fit a block, else one. Raises if neither fits."""
+    dyn = data.dyn
+    N, nx, nu, nc = dyn.horizon, dyn.nx, dyn.nu, data.eq.nc
+    limit = getattr(torch.cuda.get_device_properties(data.dx0.device),
+                    "shared_memory_per_block_optin", 232448)
+    for slots in (2, 1):
+        dims = (ctypes.c_int * 5)(N, nx, nu, nc, slots)
+        smem = 4 * lib.cheeta_eq_smem_floats(dims)
+        if smem <= limit:
+            return dims, smem
+    raise RuntimeError(
+        f"the kernel needs {smem} bytes of shared memory per block for "
+        f"nx={nx}, nu={nu}, nc={nc} even with one stage slot; the device "
+        f"offers {limit}")
+
+
 def launch_eq_kernel(entry: str, data: OcpQpData, reg: float, eps: float,
-                     batch: Optional[int], value_function: bool):
+                     batch: Optional[int], value_function: bool,
+                     timers: Optional[torch.Tensor] = None):
     """Check the tensors, allocate outputs and launch one of the two
     equality-Riccati kernels on the current stream. ``batch`` is None for
     an unbatched problem; otherwise every tensor either leads with
     ``batch`` or has no batch dimension (shared by all problems).
-    ``value_function`` asks for P and p. Returns the dict of output
+    ``value_function`` asks for P and p. ``timers``, an int64 tensor of
+    ``(problems, len(PHASE_CLASSES) + 1)``, selects the instantiation with
+    section timers (:func:`phase_cycles`). Returns the dict of output
     tensors. Does not synchronize."""
     from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
 
@@ -121,19 +200,13 @@ def launch_eq_kernel(entry: str, data: OcpQpData, reg: float, eps: float,
                 for n in order]
 
     lib = load_library()
-    dims = (ctypes.c_int * 4)(N, nx, nu, nc)
-    smem = 4 * lib.cheeta_eq_smem_floats(dims)
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", 232448)
-    _check(smem <= limit,
-           f"the kernel needs {smem} bytes of shared memory per block for "
-           f"nx={nx}, nu={nu}, nc={nc}; the device offers {limit}",
-           RuntimeError)
+    dims, smem = shared_memory_plan(lib, data)
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
             (ctypes.c_void_p * 13)(*ptrs), (ctypes.c_longlong * 13)(*strides),
             (ctypes.c_void_p * 6)(*optrs), (ctypes.c_longlong * 6)(*ostrides),
-            dims, (ctypes.c_float * 2)(reg, eps), nb, EQ_THREADS, smem,
+            None if timers is None else timers.data_ptr(),
+            dims, (ctypes.c_float * 2)(reg, eps), nb, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, code, entry)
     return out
@@ -158,7 +231,7 @@ def solve_eq_lqr_kernel(data: OcpQpData, reg: float = 1e-9,
            "solve_eq_lqr_kernel takes one unbatched problem on a CUDA "
            "device; batches go through ops.cuda_eq_batch",
            NotImplementedError)
-    out = launch_eq_kernel("cheeta_eq_riccati_single", data, reg, eps,
+    out = launch_eq_kernel(SINGLE_ENTRY, data, reg, eps,
                            batch=None, value_function=True)
     solve_eq_lqr_kernel.launches += 1
     return _no_inequality_solution(
@@ -167,3 +240,46 @@ def solve_eq_lqr_kernel(data: OcpQpData, reg: float = 1e-9,
 
 
 solve_eq_lqr_kernel.launches = 0
+
+
+def _batch_of(entry: str, data: OcpQpData) -> Optional[int]:
+    return data.dx0.shape[0] if entry == FLEET_ENTRY else None
+
+
+def phase_cycles(entry: str, data: OcpQpData, reg: float = 1e-9,
+                 eps: float = EQ_EPS) -> dict:
+    """Section times (``ops.cuda_ipm_riccati.section_times``) of ``entry``
+    (``SINGLE_ENTRY`` or ``FLEET_ENTRY``) on ``data``, whose batch is the
+    fleet kernel's. Not counted in the solvers' launch counters."""
+    batch = _batch_of(entry, data)
+    timers = torch.zeros((batch or 1, len(PHASE_CLASSES) + 1),
+                         dtype=torch.int64, device=data.dx0.device)
+    return section_times(
+        lambda t: launch_eq_kernel(entry, data, reg, eps, batch,
+                                   value_function=entry == SINGLE_ENTRY,
+                                   timers=t),
+        timers, PHASE_CLASSES)
+
+
+def launch_occupancy(entry: str, data: OcpQpData) -> dict:
+    """What the card makes of ``entry``'s launch at this problem's shape:
+    threads per team and teams per block, shared bytes per block, resident
+    blocks and problems per SM, registers and spill bytes per thread, and
+    the waves the problems of ``data`` take."""
+    from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
+    lib = load_library()
+    dev = data.dx0.device
+    team, teams = launch_limits(lib, entry)
+    dims, smem = shared_memory_plan(lib, data)
+    res = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        check_launch(lib, getattr(lib, entry + "_occupancy")(smem, res),
+                     entry + " occupancy")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = res[0] * teams
+    problems = _batch_of(entry, data) or 1
+    return {"threads_per_team": team, "teams_per_block": teams,
+            "stage_slots": dims[4], "shared_bytes": smem, "blocks_per_sm": res[0],
+            "problems_per_sm": per_sm, "registers": res[1],
+            "spill_bytes": res[2],
+            "waves": -(-problems // max(1, sms * per_sm))}

@@ -269,51 +269,58 @@ def _entry_data(entry: str, data: OcpQpData):
     return data, data.dx0.shape[0]
 
 
-def phase_cycles(entry: str, data: OcpQpData,
-                 settings: IpmSettings) -> dict:
-    """Three launches of ``entry`` (``"cheeta_ipm_riccati_single"`` or
-    ``"cheeta_ipm_riccati_fleet"``) in its timed instantiation, in which
-    thread 0 of every block charges the cycles of each barrier phase to its
-    class, alternating with three plain launches on the same inputs (after
-    one timed launch that loads the instantiation). Returns the
-    cycles per class summed over the blocks, each class's share of the
-    summed whole-kernel cycles, the whole kernel's cycles of the slowest
-    block, and the median ms (CUDA events) of the timed and of the plain
-    launches: their ratio is what the timers cost. Not counted in the
-    solvers' launch counters."""
-    data, batch = _entry_data(entry, data)
-    nb = 1 if batch is None else batch
-    timers = torch.zeros((nb, len(PHASE_CLASSES) + 1), dtype=torch.int64,
-                         device=data.dx0.device)
+def section_times(launch, timers: torch.Tensor, classes) -> dict:
+    """Three calls of ``launch(timers)`` (the timed instantiation: thread 0
+    of every block charges the cycles of each barrier phase to its class)
+    alternating with three of ``launch(None)`` (the plain one) on the same
+    inputs, after one timed call that loads the instantiation. ``timers``
+    is the int64 ``(blocks, len(classes) + 1)`` buffer the kernel fills.
+    Returns the cycles per class summed over the blocks, each class's
+    share of the summed whole-kernel cycles, the whole kernel's cycles of
+    the slowest block, and the median ms (CUDA events) of the timed and of
+    the plain launches: their ratio is what the timers cost."""
 
-    def launch(timed: bool) -> float:
+    def timed_call(timed: bool) -> float:
         if timed:
             timers.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        launch_ipm_kernel(entry, data, settings, batch,
-                          gains=entry != FLEET_ENTRY,
-                          timers=timers if timed else None)
+        launch(timers if timed else None)
         end.record()
         end.synchronize()
         return start.elapsed_time(end)
 
-    launch(True)  # the timed instantiation's first launch loads it
+    timed_call(True)  # the timed instantiation's first launch loads it
     ms = {True: [], False: []}
     for _ in range(3):
         for timed in (True, False):
-            ms[timed].append(launch(timed))
+            ms[timed].append(timed_call(timed))
     t = timers.cpu()
     tot = t.sum(dim=0).tolist()
     whole = max(1, tot[-1])
-    return {"cycles": dict(zip(PHASE_CLASSES, tot[:-1])),
+    return {"cycles": dict(zip(classes, tot[:-1])),
             "share": {c: round(v / whole, 4)
-                      for c, v in zip(PHASE_CLASSES, tot[:-1])},
+                      for c, v in zip(classes, tot[:-1])},
             "kernel_cycles_max_block": int(t[:, -1].max()),
-            "blocks": nb,
+            "blocks": t.shape[0],
             "timed_ms": sorted(ms[True])[1],
             "untimed_ms": sorted(ms[False])[1]}
+
+
+def phase_cycles(entry: str, data: OcpQpData,
+                 settings: IpmSettings) -> dict:
+    """:func:`section_times` of ``entry`` (``"cheeta_ipm_riccati_single"``
+    or ``"cheeta_ipm_riccati_fleet"``) on ``data``. Not counted in the
+    solvers' launch counters."""
+    data, batch = _entry_data(entry, data)
+    nb = 1 if batch is None else batch
+    timers = torch.zeros((nb, len(PHASE_CLASSES) + 1), dtype=torch.int64,
+                         device=data.dx0.device)
+    return section_times(
+        lambda t: launch_ipm_kernel(entry, data, settings, batch,
+                                    gains=entry != FLEET_ENTRY, timers=t),
+        timers, PHASE_CLASSES)
 
 
 def launch_occupancy(entry: str, data: OcpQpData,

@@ -70,6 +70,7 @@ TOL_GRF = 5e-2
 # SQP iteration per solve (real-time iteration), a 30 kg body.
 LEGGED_HORIZON = 67
 LEGGED_FLEET, LEGGED_FLEET_SMALL = 512, 128
+SWEEP_BATCHES = (128, 256, 512, 1024, 2048)  # K4's batch sweep
 LEGGED_MG = 30.0 * 9.81
 PYRAMID_IPM_ITERS = 10
 # K3/K4 against their plain versions, relative to the largest entry of the
@@ -541,6 +542,22 @@ def main() -> int:
     torch.cuda.synchronize()
     err_k3r = compare_eq_solutions(s3r, p3r, TOL_EQ_RANDOM, True,
                                    "K3, random instance")
+    # Shapes off the main path that K3/K4 keep taking: constraint widths
+    # past one warp's register tableau (the inverse on a shared-memory
+    # tableau), and a state wide enough that one stage slot is all that fits
+    # a block (each stage's data loaded when the stage starts).
+    err_k3_off = {}
+    for name, shape in (("k3_wide_inverse", dict(N=6, nx=16, nu=40, nc=36)),
+                        ("k3_one_stage_slot", dict(N=3, nx=110, nu=8,
+                                                   nc=4))):
+        qpo = random_qp(11, dev, ng=1, **shape).replace(con=None)
+        dims, nbytes = eq_single_mod.shared_memory_plan(build.load_library(),
+                                                        qpo)
+        so, po = k3(qpo, reg=leg_reg), k3_plain(qpo, reg=leg_reg)
+        torch.cuda.synchronize()
+        err_k3_off[name] = compare_eq_solutions(so, po, TOL_EQ_RANDOM, True,
+                                                f"K3, {name}")
+        err_k3_off[name]["stage_slots_and_bytes"] = [dims[4], nbytes]
     qplf = contig(lsolver.initial_qp(*lmany))
     s4, p4 = k4(qplf, reg=leg_reg), k4_plain(qplf, reg=leg_reg)
     torch.cuda.synchronize()
@@ -561,7 +578,7 @@ def main() -> int:
         "eq_task_rel": TOL_EQ_TASK, "eq_random_rel": TOL_EQ_RANDOM},
         "k1_centroidal": err_k1, **others, "k2_fleet": err_k2,
         "k2_batch1_vs_k1": k2_vs_k1, "k3_legged": err_k3,
-        "k3_random_legged_shape": err_k3r, "k4_fleet": err_k4,
+        "k3_random_legged_shape": err_k3r, **err_k3_off, "k4_fleet": err_k4,
         "k4_batch1_vs_k3": k4_vs_k3,
         "kept_in_shared_memory_and_bytes": placements})
 
@@ -825,16 +842,22 @@ def main() -> int:
           "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
                     "f32_flops": F32_FLOPS}})
 
-    # Phase 11: inside K1 and K2. Timed launches per shape (section timers:
-    # cycles of thread 0 per class of barrier phase) beside plain ones, so
-    # that the timers' own cost shows, and what the card makes of each
-    # launch shape.
+    # Phase 11: inside the kernels. Timed launches per shape (section
+    # timers: cycles of thread 0 per class of barrier phase) beside plain
+    # ones, so that the timers' own cost shows, and what the card makes of
+    # each launch shape.
     shapes = (("k1_centroidal", "cheeta_ipm_riccati_single", qp1, ipm),
               ("k1_legged_pyramid", "cheeta_ipm_riccati_single", qpp,
                ipm_pyr),
               (f"k2_batch{FLEET}", "cheeta_ipm_riccati_fleet", qpf, ipm))
+    eq_shapes = (("k3_legged", eq_single_mod.SINGLE_ENTRY, qpl),
+                 (f"k4_batch{LEGGED_FLEET}", eq_single_mod.FLEET_ENTRY, qplf),
+                 (f"k4_batch{LEGGED_FLEET_SMALL}", eq_single_mod.FLEET_ENTRY,
+                  qpls))
     phases = {name: single_mod.phase_cycles(entry, qp, st)
               for name, entry, qp, st in shapes}
+    phases.update({name: eq_single_mod.phase_cycles(entry, qp, reg=leg_reg)
+                   for name, entry, qp in eq_shapes})
     for ph in phases.values():
         ph["timed_over_untimed"] = ph["timed_ms"] / ph["untimed_ms"]
     emit({"phase": "kernel_phases", "card": card, **phases})
@@ -844,10 +867,42 @@ def main() -> int:
     for (name, _, qp, _), occ in zip(shapes, occupancy.values()):
         blocks = qp.dx0.shape[0] if qp.dx0.dim() == 2 else 1
         occ["waves"] = -(-blocks // (sms * occ["blocks_per_sm"]))
+    occupancy.update({name: eq_single_mod.launch_occupancy(entry, qp)
+                      for name, entry, qp in eq_shapes})
     emit({"phase": "occupancy", "sms": sms, **occupancy})
     check(occupancy[f"k2_batch{FLEET}"]["blocks_per_sm"] >= 2,
           f"K2 at batch {FLEET} holds fewer than two blocks per SM: "
           f"{occupancy[f'k2_batch{FLEET}']}")
+
+    # Phase 12: K4's batch sweep on the legged fleet's QP, repeated along
+    # the batch: kernel ms, problems/s, bound and waves at each size.
+    def fleet_of(batch):
+        reps = -(-batch // LEGGED_FLEET)
+        return contig(tree_map(
+            lambda t: (t.repeat((reps,) + (1,) * (t.dim() - 1))[:batch]
+                       if t.dim() and t.shape[0] == LEGGED_FLEET else t),
+            qplf))
+
+    sweep = {}
+    for batch in SWEEP_BATCHES:
+        qpb = fleet_of(batch)
+        sb = k4(qpb, reg=leg_reg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(sb.du).all()),
+              f"K4 at batch {batch}: du is not finite")
+        ms = median_ms(lambda: k4(qpb, reg=leg_reg), repeats=5)
+        (bb, byb), _ = bound(qpb, [sb.dx, sb.du, sb.gains.K, sb.gains.k],
+                             batch * eq_flops(*shape_of(qpb), qpb.eq.nc))
+        occ = eq_single_mod.launch_occupancy(eq_single_mod.FLEET_ENTRY, qpb)
+        sweep[batch] = {"ms": ms, "problems_per_s": 1e3 * batch / ms,
+                        "bound_ms": bb, "bound_by": byb,
+                        "waves": occ["waves"]}
+        del qpb, sb
+    emit({"phase": "k4_batch_sweep", "card": card, "batches": sweep})
+    k4_occ = occupancy[f"k4_batch{LEGGED_FLEET}"]
+    check(k4_occ["problems_per_sm"] >= 4,
+          f"K4 at batch {LEGGED_FLEET} holds fewer than four problems per "
+          f"SM: {k4_occ}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [
