@@ -102,33 +102,6 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
   for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
 }
 
-// The same copies 16 bytes at a time (cp.async.cg: through L2 only);
-// dst and src must be 16-byte aligned.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-// A team of kThreads threads (threads 0 .. kThreads - 1 of its block)
-// copies n floats from src (global) to dst (shared), 16 bytes at a time
-// where both are aligned and n is a multiple of four, else 4 bytes.
-template <int kThreads>
-__device__ __forceinline__ void team_copy_async(float* dst, const float* src,
-                                                int n) {
-  const int tid = threadIdx.x;
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // Rolled loops: a phase's code is fetched once per stage.
-  if (((reinterpret_cast<size_t>(src) | d) & 15) == 0 && (n & 3) == 0) {
-#pragma unroll 1
-    for (int i = 4 * tid; i < n; i += 4 * kThreads)
-      cp_async16(dst + i, src + i);
-  } else {
-#pragma unroll 1
-    for (int i = tid; i < n; i += kThreads) cp_async4(dst + i, src + i);
-  }
-}
-
 // n_out outputs, each the sum over kTpo threads of part(o, sub); epi(o, sum)
 // runs in one thread per output. Ends with a barrier; pre() runs in every
 // thread just before it.
@@ -299,50 +272,6 @@ struct PhaseSplit {
   }
   __device__ int step(int need) const { return side_by_side ? need : nt; }
 };
-
-// Team forms of rows() and PhaseSplit for a team of kThreads threads that
-// is its whole block; the caller ends the phase with the team's barrier.
-// Outputs are summed as rows() sums them: kTpo lanes, then xor shuffles.
-template <int kThreads, class Part, class Epi>
-__device__ __forceinline__ void team_rows(int n_out, Part part, Epi epi) {
-  static_assert(kThreads % 32 == 0, "a team is whole warps");
-  const int sub = threadIdx.x & (kTpo - 1), grp = threadIdx.x / kTpo;
-  constexpr int ngrp = kThreads / kTpo;
-  for (int o0 = 0; o0 < n_out; o0 += ngrp) {
-    const int o = o0 + grp;
-    const bool valid = o < n_out;
-    float acc = valid ? part(o, sub) : 0.f;
-    for (int s = kTpo / 2; s; s >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (valid && sub == 0) epi(o, acc);
-  }
-}
-
-// Deals the items (register tiles, vector rows) of a phase's independent
-// products round robin over the team, in the order the products are
-// named: item i of the product that starts at item ``off`` goes to thread
-// (off + i) mod nt. When ``warp_aligned`` items (each product's rounded up
-// to whole warps) fit the team, each product starts on a warp of its own,
-// so that no warp runs two products one after the other; else, when the
-// plain items fit, products share warps side by side; when they do not,
-// no thread takes a second item before every thread has a first.
-struct CyclicSplit {
-  int tid, nt, off;
-  bool aligned;
-  __device__ CyclicSplit(int tid_, int nt_, int warp_aligned = 0)
-      : tid(tid_), nt(nt_), off(0),
-        aligned(warp_aligned > 0 && warp_aligned <= nt_) {}
-  // First item of this thread in a product of ``need`` items; the step
-  // between its items is nt.
-  __device__ int first(int need) {
-    if (aligned) off = (off + 31) & ~31;
-    const int t = ((tid - off) % nt + nt) % nt;
-    off += need;
-    return t;
-  }
-};
-// Items of a product rounded up to whole warps.
-__device__ __forceinline__ int warp_items(int n) { return (n + 31) & ~31; }
 
 #endif  // __CUDACC__
 

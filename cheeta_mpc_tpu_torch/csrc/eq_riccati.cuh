@@ -4,7 +4,7 @@
 // ops/pallas_riccati.py::_eq_lqr_kernel and
 // ops/pallas_eq_batch.py::_eq_fleet_kernel of the JAX package.
 //
-// One team of kWarps warps (its whole thread block) solves one problem,
+// One team of kEqTeamWarps warps (its whole thread block) solves one problem,
 // exactly (no iterations): the backward factorization with the masked
 // stage-equality elimination, the vector pass fused into the same stage
 // loop, then the forward rollout — the algebra of
@@ -21,7 +21,7 @@
 //
 // What bounds it: the latency of the stage-serial chain, not bytes or
 // operations. What the design does about it:
-// - A problem's team of kWarps warps is its thread block, so no barrier
+// - A problem's team of four warps is its thread block, so no barrier
 //   wider than the team paces the chain, and several problems share an SM:
 //   a fleet of 512 legged problems is resident at once (four teams of four
 //   warps per SM).
@@ -60,7 +60,11 @@
 // equilibrated form turns a tiny negative diagonal of G or Lam into a 1e15
 // scale); no pivot search, no refinement. Its compact tableau applies to
 // each entry the operations of the augmented form [sym(M) | I], in the
-// same order (ops/cuda_eq_riccati.py::gj_inverse_compact).
+// same order, each update as one fmaf. ops/cuda_eq_riccati.py::
+// gj_inverse_compact follows that order in torch but rounds the product
+// and the difference separately, so it does not reproduce the fmaf
+// rounding: the kernel's own arithmetic is held only against the plain
+// version at chip_smoke.py's tolerances.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +94,11 @@ constexpr int kEqNumPhaseSlots = kEqNumPhases + 1;
 
 // Widest tableau that a warp keeps in registers (one column per lane).
 constexpr int kEqRegTableau = 32;
+
+// A team of kEqTeamWarps warps solves one problem and is one thread block;
+// four warps beat one and two for both kernels.
+constexpr int kEqTeamWarps = 4;
+constexpr int kEqTeamThreads = 32 * kEqTeamWarps;
 
 struct EqDims {
   int N, nx, nu, nc;
@@ -164,6 +173,75 @@ struct EqArgs {
 
 #ifdef __CUDACC__
 
+// cp_async4 (block_linalg.cuh) 16 bytes at a time (cp.async.cg: through L2
+// only); dst and src must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+// The team copies n floats from src (global) to dst (shared), 16 bytes at
+// a time where both are aligned and n is a multiple of four, else 4 bytes;
+// the caller commits and waits.
+__device__ __forceinline__ void team_copy_async(float* dst, const float* src,
+                                                int n) {
+  const int tid = threadIdx.x;
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  // Rolled loops: a phase's code is fetched once per stage.
+  if (((reinterpret_cast<size_t>(src) | d) & 15) == 0 && (n & 3) == 0) {
+#pragma unroll 1
+    for (int i = 4 * tid; i < n; i += 4 * kEqTeamThreads)
+      cp_async16(dst + i, src + i);
+  } else {
+#pragma unroll 1
+    for (int i = tid; i < n; i += kEqTeamThreads) cp_async4(dst + i, src + i);
+  }
+}
+
+// n_out mat-vec rows over the team, each summed as rows() (block_linalg.cuh)
+// sums it: part(o, sub) on kTpo lanes, then xor shuffles; epi(o, sum) runs
+// in one thread per row. The caller ends the phase with the team's barrier.
+template <class Part, class Epi>
+__device__ __forceinline__ void team_rows(int n_out, Part part, Epi epi) {
+  const int sub = threadIdx.x & (kTpo - 1), grp = threadIdx.x / kTpo;
+  constexpr int ngrp = kEqTeamThreads / kTpo;
+  for (int o0 = 0; o0 < n_out; o0 += ngrp) {
+    const int o = o0 + grp;
+    const bool valid = o < n_out;
+    float acc = valid ? part(o, sub) : 0.f;
+    for (int s = kTpo / 2; s; s >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    if (valid && sub == 0) epi(o, acc);
+  }
+}
+
+// Deals the items (register tiles, vector rows) of a phase's independent
+// products round robin over the team, in the order the products are
+// named: item i of the product that starts at item ``off`` goes to thread
+// (off + i) mod nt. When ``warp_aligned`` items (each product's rounded up
+// to whole warps) fit the team, each product starts on a warp of its own,
+// so that no warp runs two products one after the other; else, when the
+// plain items fit, products share warps side by side; when they do not,
+// no thread takes a second item before every thread has a first.
+struct CyclicSplit {
+  int tid, nt, off;
+  bool aligned;
+  __device__ CyclicSplit(int tid_, int nt_, int warp_aligned = 0)
+      : tid(tid_), nt(nt_), off(0),
+        aligned(warp_aligned > 0 && warp_aligned <= nt_) {}
+  // First item of this thread in a product of ``need`` items; the step
+  // between its items is nt.
+  __device__ int first(int need) {
+    if (aligned) off = (off + 31) & ~31;
+    const int t = ((tid - off) % nt + nt) % nt;
+    off += need;
+    return t;
+  }
+};
+// Items of a product rounded up to whole warps.
+__device__ __forceinline__ int warp_items(int n) { return (n + 31) & ~31; }
+
 // M <- inverse of sym(M), n x n (n <= kMax <= 32), by one warp, in
 // registers. Lane c holds column c of the compact tableau (slot c: left
 // column c until pivot c, right column n + c from then on: the columns a
@@ -175,10 +253,11 @@ struct EqArgs {
 // fma(-T[i][j], rv, T[i][c]), plus rv in row j, with rv = T[j][c] times the
 // pivot's reciprocal. Slot j turns into right column n + j, which held
 // e_j: its pivot-row entry is 1, and its entries start from e_j. Rows and
-// lanes past n hold zeros and are not stored. The pivot loop stays rolled
-// (code size); with kExact, n == kMax is known to the compiler, which
-// schedules the loop better (the legged widths, 24 and 16, take it). M is
-// at shared offset m_off.
+// lanes past n hold zeros, stay zero and are not stored, so every n <= kMax
+// gives the same bits at any kMax >= n. The pivot loop stays rolled (code
+// size); with kExact, n == kMax is known to the compiler, which schedules
+// the loop better (the legged widths, 24 and 16, take it). M is at shared
+// offset m_off.
 template <int kMax, bool kExact>
 static __device__ void warp_gj_inverse(int m_off, int n_) {
   const int n = kExact ? kMax : n_;
@@ -260,9 +339,6 @@ static __device__ __noinline__ void tableau_inverse(int m_off, int n,
   if (threadIdx.x >= 32) return;
   if (n == 16) warp_gj_inverse<16, true>(m_off, n);
   else if (n == 24) warp_gj_inverse<24, true>(m_off, n);
-  else if (n <= 8) warp_gj_inverse<8, false>(m_off, n);
-  else if (n <= 16) warp_gj_inverse<16, false>(m_off, n);
-  else if (n <= 24) warp_gj_inverse<24, false>(m_off, n);
   else if (n <= kEqRegTableau) warp_gj_inverse<kEqRegTableau, false>(m_off, n);
   else warp_gj_inverse_wide(smem + m_off, n, smem + rowj_off, smem + colj_off);
 }
@@ -274,7 +350,6 @@ enum { kCopyStage = 1, kCopyRSQ = 2, kCopyStep = 4 };
 // mask into the slot at shared offset sl; with kCopyRSQ, R_k, S_k and Q_k
 // into G, H and the P at p_off; with kCopyStep, rollout step k's A, B, K,
 // k and b into the slot at sl.
-template <int kThreads>
 static __device__ __noinline__ void stage_copies(const EqArgs& a, int k,
                                                  int sl, int p_off,
                                                  int what) {
@@ -287,7 +362,7 @@ static __device__ __noinline__ void stage_copies(const EqArgs& a, int k,
     return a.in[i] + prob * a.in_stride[i] + (size_t)k * per_stage;
   };
   auto copy = [&](int dst_off, const float* src, int n) {
-    team_copy_async<kThreads>(smem + dst_off, src, n);
+    team_copy_async(smem + dst_off, src, n);
   };
   if (what & (kCopyStage | kCopyStep)) {
     copy(sl + L.sA, in(0, nx * nx), nx * nx);
@@ -578,9 +653,9 @@ __device__ __forceinline__ void run_phase_tiles(CyclicSplit& ph, int nt,
   }
 }
 
-template <int kWarps, bool kTimed>
+template <bool kTimed>
 static __device__ void eq_lqr_solve(const EqArgs& a, float* smem) {
-  constexpr int nt = 32 * kWarps;
+  constexpr int nt = kEqTeamThreads;
   PhaseClock<kTimed, kEqNumPhases> clk;
   const EqDims d = a.d;
   const int N = d.N, nx = d.nx, nu = d.nu, nc = d.nc;
@@ -588,11 +663,7 @@ static __device__ void eq_lqr_solve(const EqArgs& a, float* smem) {
   const long long prob = blockIdx.x;
   const EqLayout& L = a.L;
   const float reg = a.reg, eps = a.eps;
-  // The team is the block: one warp synchronizes as a warp.
-  auto sync = [] {
-    if (kWarps == 1) __syncwarp();
-    else __syncthreads();
-  };
+  auto sync = [] { __syncthreads(); };  // the team is the block
 
   // The inputs are read-only and overlap nothing the kernel writes; the
   // stage data comes through stage_copies.
@@ -616,10 +687,10 @@ static __device__ void eq_lqr_solve(const EqArgs& a, float* smem) {
     return L.slot + (L.nslot == 2 ? (k & 1) : 0) * L.slot_size;
   };
   auto load_stage = [&](int k) {
-    stage_copies<nt>(a, k, slot_at(k), 0, kCopyStage);
+    stage_copies(a, k, slot_at(k), 0, kCopyStage);
   };
   auto load_step = [&](int k) {
-    stage_copies<nt>(a, k, slot_at(k), 0, kCopyStep);
+    stage_copies(a, k, slot_at(k), 0, kCopyStep);
   };
   const bool ahead = L.nslot == 2;
 
@@ -658,7 +729,7 @@ static __device__ void eq_lqr_solve(const EqArgs& a, float* smem) {
     // R, S, Q of this stage into the arrays their sums start from (dead
     // since the last stage); the next stage's data into the other slot,
     // whose last reader was the last stage.
-    stage_copies<nt>(a, k, sl, oPk, kCopyRSQ | (ahead ? 0 : kCopyStage));
+    stage_copies(a, k, sl, oPk, kCopyRSQ | (ahead ? 0 : kCopyStage));
     cp_async_commit();
     if (ahead && k > 0) load_stage(k - 1);
     cp_async_commit();
@@ -848,7 +919,7 @@ static __device__ void eq_lqr_solve(const EqArgs& a, float* smem) {
                 *sK = s + sl + L.sC, *sk = s + sl + L.sr, *sb = s + sl + L.sb;
     const float* dx = dxb + (k & 1) * nx;
     float* dxn = dxb + ((k + 1) & 1) * nx;
-    team_rows<nt>(
+    team_rows(
         nu, [&](int o, int sub) { return pdot(sK + o * nx, 1, dx, nx, sub); },
         [&](int o, float acc) {
           const float v = acc + sk[o];
@@ -856,7 +927,7 @@ static __device__ void eq_lqr_solve(const EqArgs& a, float* smem) {
           odu[k * nu + o] = v;
         });
     sync();
-    team_rows<nt>(
+    team_rows(
         nx,
         [&](int o, int sub) {
           return pdot(sA + o * nx, 1, dx, nx, sub) +

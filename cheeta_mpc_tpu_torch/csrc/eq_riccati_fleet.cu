@@ -10,11 +10,11 @@ extern "C" int cheeta_eq_riccati_fleet(CHEETA_EQ_LAUNCH_PARAMS) {
   if (timers != nullptr)
     return cheeta::launch_eq_fleet_timed(CHEETA_EQ_LAUNCH_ARGS);
   return cheeta::launch_eq(cheeta::eq_riccati_fleet_kernel<false>,
-                           cheeta::kEqFleetWarps, CHEETA_EQ_LAUNCH_ARGS);
+                           CHEETA_EQ_LAUNCH_ARGS);
 }
 
 extern "C" int cheeta_eq_riccati_fleet_occupancy(long long smem_bytes,
                                                  int* out) {
   return cheeta::occupancy(cheeta::eq_riccati_fleet_kernel<false>,
-                           32 * cheeta::kEqFleetWarps, smem_bytes, out);
+                           cheeta::kEqTeamThreads, smem_bytes, out);
 }

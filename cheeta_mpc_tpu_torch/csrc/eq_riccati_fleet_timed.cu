@@ -5,5 +5,5 @@
 
 int cheeta::launch_eq_fleet_timed(CHEETA_EQ_LAUNCH_PARAMS) {
   return cheeta::launch_eq(cheeta::eq_riccati_fleet_kernel<true>,
-                           cheeta::kEqFleetWarps, CHEETA_EQ_LAUNCH_ARGS);
+                           CHEETA_EQ_LAUNCH_ARGS);
 }

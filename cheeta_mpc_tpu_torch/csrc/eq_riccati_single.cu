@@ -10,22 +10,18 @@ extern "C" int cheeta_eq_riccati_single(CHEETA_EQ_LAUNCH_PARAMS) {
   if (timers != nullptr)
     return cheeta::launch_eq_single_timed(CHEETA_EQ_LAUNCH_ARGS);
   return cheeta::launch_eq(cheeta::eq_riccati_single_kernel<false>,
-                           cheeta::kEqSingleWarps, CHEETA_EQ_LAUNCH_ARGS);
+                           CHEETA_EQ_LAUNCH_ARGS);
 }
 
 extern "C" int cheeta_eq_riccati_single_occupancy(long long smem_bytes,
                                                   int* out) {
   return cheeta::occupancy(cheeta::eq_riccati_single_kernel<false>,
-                           32 * cheeta::kEqSingleWarps, smem_bytes, out);
+                           cheeta::kEqTeamThreads, smem_bytes, out);
 }
 
-// What a kernel is built for, into out[0..1]: threads per team (the
-// threads that solve one problem) and teams per block. fleet: 0 = K3,
-// 1 = K4.
-extern "C" void cheeta_eq_launch_limits(int fleet, int* out) {
-  out[0] = 32 * (fleet ? cheeta::kEqFleetWarps : cheeta::kEqSingleWarps);
-  out[1] = 1;
-}
+// Threads per block of both kernels: a block is the team that solves one
+// problem.
+extern "C" int cheeta_eq_block_threads() { return cheeta::kEqTeamThreads; }
 
 // Shared-memory floats of one block; dims is {N, nx, nu, nc, stage slots}
 // here and in the launchers.

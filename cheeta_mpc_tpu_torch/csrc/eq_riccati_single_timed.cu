@@ -5,5 +5,5 @@
 
 int cheeta::launch_eq_single_timed(CHEETA_EQ_LAUNCH_PARAMS) {
   return cheeta::launch_eq(cheeta::eq_riccati_single_kernel<true>,
-                           cheeta::kEqSingleWarps, CHEETA_EQ_LAUNCH_ARGS);
+                           CHEETA_EQ_LAUNCH_ARGS);
 }

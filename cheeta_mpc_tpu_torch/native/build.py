@@ -127,8 +127,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _INT
     lib.cheeta_eq_smem_floats.argtypes = [ctypes.POINTER(_INT)]
     lib.cheeta_eq_smem_floats.restype = _LL
-    lib.cheeta_eq_launch_limits.argtypes = [_INT, ctypes.POINTER(_INT)]
-    lib.cheeta_eq_launch_limits.restype = None
+    lib.cheeta_eq_block_threads.argtypes = []
+    lib.cheeta_eq_block_threads.restype = _INT
     for name in ("cheeta_eq_riccati_single_occupancy",
                  "cheeta_eq_riccati_fleet_occupancy"):
         fn = getattr(lib, name)

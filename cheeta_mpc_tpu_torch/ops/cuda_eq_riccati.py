@@ -30,8 +30,9 @@ Source note.
   product compounds over 67 stages to newtons of force), each output
   summed in one fixed order, so every team size and tile shape gives the
   same bits; the inverse is the PLAIN Gauss-Jordan with the separate
-  add-back, as in the Pallas kernel (:func:`gj_inverse_compact` mirrors
-  the kernel's compact tableau). ``phase_cycles`` runs the instantiation
+  add-back, as in the Pallas kernel (:func:`gj_inverse_compact` follows
+  the order of operations of the kernel's compact tableau, but not its
+  fused multiply-add rounding). ``phase_cycles`` runs the instantiation
   with section timers, ``launch_occupancy`` reports what the card makes
   of a launch.
 
@@ -91,7 +92,11 @@ def gj_inverse_compact(M: torch.Tensor) -> torch.Tensor:
     that pivot j changes. At pivot j slot j turns into right column n + j,
     which holds e_j and whose pivot-row entry is 1. Every entry sees the
     operations of the augmented form in the same order, so the result is
-    the same, bit for bit (tests/test_torch_eq_kernel_plain.py). Like
+    the same, bit for bit (tests/test_torch_eq_kernel_plain.py). It shows
+    that the compact order of operations loses nothing; it does not
+    reproduce the kernels' rounding, which fuses each update into one
+    multiply-add, so the kernels are held against the plain version only
+    at chip_smoke.py's tolerances. Like
     :func:`gj_inverse_plain` it takes M as given; the kernels symmetrize on
     load, the plain solver before the call."""
     n = M.shape[-1]
@@ -130,13 +135,11 @@ def solve_eq_lqr_plain(data: OcpQpData, reg: float = 1e-9,
     return solve_eq_lqr(data, reg=reg, eps=eps, inverse=gj_inverse_plain)
 
 
-def launch_limits(lib, entry: str):
-    """``(threads_per_team, teams_per_block)`` that the library builds
-    ``entry``'s kernel for (csrc/eq_launch.inl): a team is the threads that
-    solve one problem."""
-    out = (ctypes.c_int * 2)()
-    lib.cheeta_eq_launch_limits(int(entry == FLEET_ENTRY), out)
-    return tuple(out)
+def block_threads(lib) -> int:
+    """Threads per block that the library builds both kernels for
+    (csrc/eq_riccati.cuh, kEqTeamThreads): a block is the team of warps
+    that solves one problem."""
+    return int(lib.cheeta_eq_block_threads())
 
 
 def shared_memory_plan(lib, data: OcpQpData):
@@ -263,23 +266,21 @@ def phase_cycles(entry: str, data: OcpQpData, reg: float = 1e-9,
 
 def launch_occupancy(entry: str, data: OcpQpData) -> dict:
     """What the card makes of ``entry``'s launch at this problem's shape:
-    threads per team and teams per block, shared bytes per block, resident
-    blocks and problems per SM, registers and spill bytes per thread, and
+    threads per block (one block solves one problem), shared bytes per
+    block, resident blocks (= problems) per SM, registers and spill bytes per thread, and
     the waves the problems of ``data`` take."""
     from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
     lib = load_library()
     dev = data.dx0.device
-    team, teams = launch_limits(lib, entry)
     dims, smem = shared_memory_plan(lib, data)
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         check_launch(lib, getattr(lib, entry + "_occupancy")(smem, res),
                      entry + " occupancy")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = res[0] * teams
     problems = _batch_of(entry, data) or 1
-    return {"threads_per_team": team, "teams_per_block": teams,
-            "stage_slots": dims[4], "shared_bytes": smem, "blocks_per_sm": res[0],
-            "problems_per_sm": per_sm, "registers": res[1],
+    return {"threads_per_block": block_threads(lib),
+            "stage_slots": dims[4], "shared_bytes": smem,
+            "problems_per_sm": res[0], "registers": res[1],
             "spill_bytes": res[2],
-            "waves": -(-problems // max(1, sms * per_sm))}
+            "waves": -(-problems // max(1, sms * res[0]))}

@@ -21,7 +21,8 @@ of 3 (the JAX fleet kernel needs a multiple of 128 problems and belongs to
 the JAX package's slow tier in interpret mode).
 
 The kernels' inverse runs on a compact n x n tableau (one column per lane
-of a warp); its plain mirror ``gj_inverse_compact`` equals the augmented
+of a warp); ``gj_inverse_compact``, which follows its order of operations
+in torch (but not its fused multiply-add rounding), equals the augmented
 ``gj_inverse_plain`` bit for bit, in f32 and f64, near-singular and badly
 scaled matrices included.
 """
