@@ -3,11 +3,12 @@
 Same sub-package and module names as the JAX package, so every module's
 counterpart is found by name; PyTorch idiom inside: dataclasses of tensors in
 place of pytrees, a written-out leading batch dimension in place of ``vmap``,
-eager execution in place of ``jit``, and hand-written CUDA kernels
-(``csrc/``, built by ``native/build.py`` at first launch) in place of the
-Pallas kernels.
+one CUDA graph per call signature in place of ``jit``, and hand-written
+CUDA kernels (``csrc/``, built by ``native/build.py`` at first launch) in
+place of the Pallas kernels.
 
-Ported so far — the centroidal MPC main path and the legged SRBD MPC:
+Ported so far — the centroidal MPC main path, the legged SRBD MPC and the
+real-time planning path on top of them:
 
 - ``core.types``            problem/solution containers
 - ``ops.linalg_small``      SPD inverse of the torch executor
@@ -27,10 +28,18 @@ Ported so far — the centroidal MPC main path and the legged SRBD MPC:
 - ``solvers.discretization``, ``gait``
                             event-aligned grids, mode schedules, swing planner
                             (numpy)
-- ``mpc.centroidal_mpc``    the centroidal MPC and its ``CentroidalMPC`` facade
+- ``mpc.centroidal_mpc``    the centroidal MPC, its ``CentroidalMPC`` facade
+                            and the n-tick receding-horizon loop
 - ``mpc.friction_cone``, ``mpc.ee_constraint``, ``mpc.legged_mpc``
                             soft and pyramid friction cones, end-effector
                             constraint forms, the legged MPC
+- ``mpc.legged_node``       the legged planning node (gait, swing, grid, warm
+                            start and commands behind one ``solve_fn``)
+- ``mpc.runtime``, ``mpc.loopshaping``, ``mpc.solver_observer``,
+  ``gait.receiver``, ``utils.info_config``, ``utils.timing``
+                            the MPC/MRT runtime, config files and timers
+                            (numpy copies)
+- ``utils.cuda_graph``      ``graphed``: one CUDA graph per call signature
 - ``examples``              scenario generators (numpy)
 - ``convert``               numpy/dict -> port objects, for cross-package tests
 

@@ -49,6 +49,7 @@ from cheeta_mpc_tpu_torch.models.centroidal import (GRAVITY, CentroidalParams,
 from cheeta_mpc_tpu_torch.ops.riccati import bmv
 from cheeta_mpc_tpu_torch.solvers.scp import (ScpSettings, make_performance,
                                               solve_nonlinear_ocp)
+from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
 
 
 class CentroidalMpcConfig(NamedTuple):
@@ -475,6 +476,54 @@ def build_centroidal_solver(cfg: CentroidalMpcConfig,
     return solve
 
 
+def build_centroidal_mpc_loop(cfg: CentroidalMpcConfig,
+                              scp: ScpSettings = ScpSettings(),
+                              n_ticks: int = 20, device="cuda"):
+    """An n-tick receding-horizon MPC loop in one CUDA graph: a cold solve,
+    then ``n_ticks`` times {warm-started solve -> apply u0 -> plant step ->
+    shift the warm start}, plant == model (the counterpart of the JAX
+    package's one ``lax.scan`` dispatch). Returns ``fn(state, des_state,
+    des_inputs) -> (states, forces)`` with ``states`` (..., n_ticks, nx)
+    augmented states after each plant step and ``forces`` (..., n_ticks,
+    num_legs, 3) the applied contact forces.
+
+    The desired trajectories are held (a hold/stand command) and the contact
+    table is taken from ``des_inputs`` unchanged each tick, so use a
+    constant-contact scenario (e.g. stance). On a card the first call of a
+    signature captures the whole loop and later calls replay it; on
+    ``device="cpu"`` it runs eagerly.
+    """
+    dev = resolve_device(device)
+    params = CentroidalParams.create(cfg.mass, cfg.num_legs, cfg.dt, cfg.mu)
+    solve = build_centroidal_solver(cfg, scp, device=dev)
+    nl = cfg.num_legs
+
+    def loop(state, des_state, des_inputs):
+        refs = _unpack_reference_inputs(cfg, state, des_state, des_inputs,
+                                        dev)
+        sol = solve(state, des_state, des_inputs)
+        x_aug, x_w, u_w = sol.x_traj[..., 0, :], sol.x_traj, sol.u_traj
+        states, forces = [], []
+        for _ in range(n_ticks):
+            # The augmented state's first 9 + 3*nl entries are the packed
+            # state; f_prev is carried by the warm start.
+            res = solve(x_aug[..., :9 + 3 * nl], des_state, des_inputs,
+                        warm=(x_w, u_w))
+            u0 = res.u_traj[..., 0, :]
+            x_aug = centroidal_step(params, res.x_traj[..., 0, :], u0,
+                                    refs.enable[..., 0, :])
+            x_w = torch.cat([res.x_traj[..., 1:, :], res.x_traj[..., -1:, :]],
+                            dim=-2)
+            u_w = torch.cat([res.u_traj[..., 1:, :], res.u_traj[..., -1:, :]],
+                            dim=-2)
+            _, u_f = unpack_input(params, u0)
+            states.append(x_aug)
+            forces.append(refs.enable[..., 0, :, None] * u_f)
+        return torch.stack(states, dim=-2), torch.stack(forces, dim=-3)
+
+    return graphed(loop, dev)
+
+
 class CentroidalMPC:
     """Object-style facade: ctor -> ``setup_mpc`` -> ``update_mpc``."""
 
@@ -488,19 +537,23 @@ class CentroidalMPC:
             mu=tuple(float(m) for m in mu), dtype=dtype)
         self.device = device
         self._scp = scp
-        self._solve = None
+        self.solver = None  # the graphed solver, once set up
 
     def setup_mpc(self):
-        """Builds the solver; raises if ``device`` is a card that is not
-        there."""
-        self._solve = build_centroidal_solver(self.config, self._scp,
-                                              device=self.device)
+        """Builds the solver as one CUDA graph per call signature (the JAX
+        package jits it here; ``utils.cuda_graph.graphed``); raises if
+        ``device`` is a card that is not there. On ``device="cpu"`` the
+        solver runs eagerly."""
+        self.solver = graphed(build_centroidal_solver(
+            self.config, self._scp, device=self.device), self.device)
         return self
 
     def update_mpc(self, state, des_state, des_inputs,
                    warm=None) -> CentroidalSolution:
         """One MPC solve on packed inputs (numpy arrays or tensors, with or
-        without leading batch dimensions)."""
-        if self._solve is None:
+        without leading batch dimensions). On a card the first call of a
+        signature captures the graph, every call replays it and returns
+        fresh tensors, which a later call does not change."""
+        if self.solver is None:
             raise RuntimeError("call setup_mpc() first")
-        return self._solve(state, des_state, des_inputs, warm=warm)
+        return self.solver(state, des_state, des_inputs, warm=warm)

@@ -21,8 +21,7 @@ contact mode (masked equality-Riccati elimination).
 
 Every input of ``solve`` may carry one leading batch dimension (what
 ``jax.vmap`` of the JAX solver is); the enable table, the swing references
-and ``dts`` are per scenario. ``LeggedMpcConfig.from_task_info`` is not
-ported yet (it needs ``utils/info_config.py``).
+and ``dts`` are per scenario.
 """
 
 from __future__ import annotations
@@ -71,6 +70,39 @@ class LeggedMpcConfig(NamedTuple):
     barrier_mu: float = 0.1
     barrier_delta: float = 5.0
     dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def from_task_info(cls, task_info_path: str, horizon: Optional[int] = None,
+                       cone_mode: str = 'soft',
+                       dtype: torch.dtype = torch.float32
+                       ) -> "LeggedMpcConfig":
+        """The configuration of a task.info file (Q/R diagonals, shooting
+        dt and integrator, horizon, friction-cone and model settings), as
+        the JAX package reads it. Defaults to the soft cone, the task's own
+        treatment."""
+        from cheeta_mpc_tpu_torch.utils.info_config import (as_matrix,
+                                                            load_info)
+        tree = load_info(task_info_path)
+        Q = as_matrix(tree["Q"])
+        R = as_matrix(tree["R"])
+        ms = tree["multiple_shooting"]
+        dt = float(ms["dt"])
+        T = float(tree["mpc"]["timeHorizon"])
+        N = horizon if horizon is not None else int(round(T / dt))
+        fc = tree["frictionConeSoftConstraint"]
+        return cls(
+            params=SrbdParams(dt=dt, integrator=str(
+                ms.get("integratorType", "RK2")).lower()),
+            horizon=N,
+            q_diag=tuple(np.diag(Q).tolist()),
+            r_diag=tuple(np.diag(R).tolist()),
+            friction_mu=float(fc["frictionCoefficient"]),
+            position_error_gain=float(
+                tree["model_settings"]["positionErrorGain"]),
+            cone_mode=cone_mode,
+            barrier_mu=float(fc.get("mu", 0.1)),
+            barrier_delta=float(fc.get("delta", 5.0)),
+            dtype=dtype)
 
 
 class LeggedSolution(NamedTuple):

@@ -14,7 +14,12 @@ scenarios through K2) and the legged SRBD MPC at the reference's scale
 (horizon 67, 24 states and inputs, 16 stage-equality rows: batch 1 through
 K3, pyramid mode at batch 1 through K1 with stage equalities, a fleet of 512
 scenarios through K4). It checks the results, times kernels and solves with
-CUDA events, counts what one solve costs the host, and prints one JSON
+CUDA events, and counts what one solve costs the host. Then it drives the
+real-time planning path: each of those five solves as one CUDA graph per
+solve against its eager run (``graph_vs_eager``: results, host launches,
+kernels by name in a profiled replay, p50/p99 solve time), the 20-tick
+receding-horizon loop as one graph (``closed_loop``) and the legged planning
+node in the lock-step dummy loop (``legged_node``). It prints one JSON
 object per line. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
@@ -93,6 +98,19 @@ TOL_EQ_RANDOM = 5e-3
 TOL_LEG_F64 = 2e-4
 TOL_LEG_PLAIN = 5e-4
 TOL_PYRAMID = 1e-3  # stance forces inside the friction pyramid, N
+
+# The graphed paths (one CUDA graph per solve signature, utils/cuda_graph.py).
+GRAPH_SOLVES = 200  # host-clock solves per path and mode, for p50 / p99
+BUDGET_MS, BUDGET_P99_MS = 20.0, 30.0  # 50 Hz replanning; BASELINE's p99
+# The four kernels as a profiler trace names them, K1..K4.
+KERNEL_NAMES = ("ipm_riccati_single_kernel", "ipm_riccati_fleet_kernel",
+                "eq_riccati_single_kernel", "eq_riccati_fleet_kernel")
+LOOP_TICKS = 20  # the on-device n-tick loop (build_centroidal_mpc_loop)
+# The legged planning node: trot at 0.25 m/s after 0.2 s of stance, driven
+# for 1.2 s by the lock-step dummy loop with the plant stepping every 5 ms
+# and the MPC replanning every fourth step (50 Hz).
+NODE_SPEED, NODE_TROT_CYCLE = 0.25, 0.7
+NODE_MRT_DT, NODE_RATIO, NODE_STEPS = 0.005, 4, 240
 
 
 def emit(obj) -> None:
@@ -259,7 +277,10 @@ def random_qp(seed: int, device, N=12, nx=12, nu=8, ng=6, nc=3):
 def host_cost(solve) -> dict:
     """What one ``solve()`` costs the host, from a ``torch.profiler`` pass:
     kernel launches, waits for the stream, host-to-device copies, and the
-    device time of everything it launched."""
+    device time of everything it launched (the device's own events: a host
+    operator's self device time is that of the kernels it launched, which
+    are events of their own)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     solve()
     torch.cuda.synchronize()
@@ -278,7 +299,8 @@ def host_cost(solve) -> dict:
                            + count("cudaDeviceSynchronize")),
             "host_to_device_copies": count("cudaMemcpyAsync"),
             "device_ms": sum(e.self_device_time_total
-                             for e in events.values()) / 1e3}
+                             for e in events.values()
+                             if e.device_type == DeviceType.CUDA) / 1e3}
 
 
 def sync_warnings(solve) -> int:
@@ -377,6 +399,60 @@ def compare_solutions(sol, ref, gains: bool, what: str) -> dict:
     return errs
 
 
+def trace_counts(call) -> dict:
+    """One ``call()`` under ``torch.profiler``: the host's kernel launches,
+    graph launches and copies, the kernels K1..K4 by name on the device and
+    their device time, every device operation (kernels, copies, fills) and
+    the device time of them all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out = {"host_kernel_launches": 0, "graph_launches": 0,
+           "host_copies": 0, "kernels": [0] * len(KERNEL_NAMES),
+           "kernel_ms": [0.0] * len(KERNEL_NAMES), "device_ops": 0,
+           "device_ms": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            out["device_ops"] += 1
+            out["device_ms"] += ms
+            for i, name in enumerate(KERNEL_NAMES):
+                if name in e.name:
+                    out["kernels"][i] += 1
+                    out["kernel_ms"][i] += ms
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            out["host_kernel_launches"] += 1
+        elif e.name == "cudaGraphLaunch":
+            out["graph_launches"] += 1
+        elif e.name.startswith("cudaMemcpy"):
+            out["host_copies"] += 1
+    return out
+
+
+def wall_spread(fn, n: int = GRAPH_SOLVES, warmup: int = 3) -> dict:
+    """p50 / p99 / max host ms of ``fn()`` over ``n`` calls; ``fn`` ends
+    with its outputs on the host, so each call ends in a wait for the
+    card."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    ts.sort()
+
+    def pct(p):
+        return ts[min(n - 1, int(round(p / 100.0 * (n - 1))))]
+
+    return {"p50": pct(50), "p99": pct(99), "max": ts[-1], "n": n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -394,6 +470,9 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    # Start the profiler's device tracing once before any graph is captured,
+    # so that later traces see the kernels of every graph's replays.
+    trace_counts(lambda: torch.ones(1, device=dev).sum())
 
     from cheeta_mpc_tpu_torch.core.types import tree_map
     from cheeta_mpc_tpu_torch.examples import (LEGGED_TEST_WEIGHTS,
@@ -582,7 +661,12 @@ def main() -> int:
         "k4_batch1_vs_k3": k4_vs_k3,
         "kept_in_shared_memory_and_bytes": placements})
 
-    # Phase 4: centroidal main path, batch 1.
+    # Phase 4: centroidal main path, batch 1. ``update_mpc`` runs one CUDA
+    # graph per input signature: the first call captures it (after two
+    # warm-up solves), so the counted run below is a replay, whose kernel
+    # launches the graph adds to the kernels' counts.
+    mpc.update_mpc(*one)
+    torch.cuda.synchronize()
     reset_counts()
     sol1 = mpc.update_mpc(*one)
     torch.cuda.synchronize()
@@ -615,7 +699,10 @@ def main() -> int:
           "step_size": sol1.step_size.tolist(),
           "convergence": int(sol1.convergence)})
 
-    # Phase 5: centroidal main path, fleet.
+    # Phase 5: centroidal main path, fleet (its graph captured first, as
+    # in phase 4).
+    mpc.update_mpc(*many)
+    torch.cuda.synchronize()
     reset_counts()
     solf = mpc.update_mpc(*many)
     torch.cuda.synchronize()
@@ -903,6 +990,226 @@ def main() -> int:
     check(k4_occ["problems_per_sm"] >= 4,
           f"K4 at batch {LEGGED_FLEET} holds fewer than four problems per "
           f"SM: {k4_occ}")
+
+    # Phase 13: each path as one CUDA graph per solve against its eager run
+    # on the same inputs, as numpy: the graphed solvers of the entry points
+    # (the one CentroidalMPC.update_mpc calls; utils.cuda_graph.graphed
+    # around the legged solver, as the legged planning node builds it).
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
+    glsolver = graphed(lsolver, dev)
+    glsolver_pyr = graphed(lsolver_pyr, dev)
+    graph_paths = (
+        ("centroidal_batch1", solver, mpc.solver, one, "contact_force",
+         [SQP_ITERS, 0, 0, 0]),
+        (f"centroidal_fleet{FLEET}", solver, mpc.solver, many,
+         "contact_force", [0, SQP_ITERS, 0, 0]),
+        ("legged_soft_batch1", lsolver, glsolver, lone_np.args, "forces",
+         [0, 0, 1, 0]),
+        ("legged_pyramid_batch1", lsolver_pyr, glsolver_pyr, lone_np.args,
+         "forces", [1, 0, 0, 0]),
+        (f"legged_fleet{LEGGED_FLEET}", lsolver, glsolver, lmany_np.args,
+         "forces", [0, 0, 0, 1]))
+    graph_report = {}
+    for name, eager, graph_fn, args, out_name, want in graph_paths:
+        graph_fn(*args)  # captures the graph if this signature has none
+        torch.cuda.synchronize()
+        reset_counts()
+        sol_g = graph_fn(*args)
+        torch.cuda.synchronize()
+        check(counts() == want,
+              f"{name}: one graphed solve counted K1..K4 {counts()}x; "
+              f"expected {want}")
+        sol_e = eager(*args)
+        torch.cuda.synchronize()
+        # A replay runs the kernels of the eager solve on the same inputs in
+        # the same order, and none of them sums in a run-dependent order:
+        # the results are equal bit for bit (measured on an H100 on all five
+        # paths), and that is the gate.
+        diff = {k: max_abs(getattr(sol_g, k), getattr(sol_e, k))
+                for k in (out_name, "x_traj", "u_traj", "merit",
+                          "step_size")}
+        bit_equal = all(torch.equal(getattr(sol_g, k), getattr(sol_e, k))
+                        for k in diff)
+        check(bit_equal, f"{name}: graphed and eager results differ: {diff}")
+
+        def to_host(sol, out_name=out_name):
+            return getattr(sol, out_name).cpu(), sol.u_traj.cpu()
+
+        tr = trace_counts(lambda: to_host(graph_fn(*args)))
+        check(tr["kernels"] == want,
+              f"{name}: a profiled replay ran K1..K4 {tr['kernels']}x; "
+              f"expected {want}")
+        check(tr["host_kernel_launches"] == 0 and tr["graph_launches"] == 1,
+              f"{name}: a graphed solve made {tr['host_kernel_launches']} "
+              f"kernel launches and {tr['graph_launches']} graph launches "
+              "on the host; expected 0 and 1")
+        tr_eager = trace_counts(lambda: to_host(eager(*args)))
+        wall_e = wall_spread(lambda: to_host(eager(*args)))
+        wall_g = wall_spread(lambda: to_host(graph_fn(*args)))
+        graph_report[name] = {
+            "graphed_vs_eager_max_abs": diff, "bit_equal": bit_equal,
+            "replay": tr,
+            "eager_host_kernel_launches": tr_eager["host_kernel_launches"],
+            "eager_device_ms": tr_eager["device_ms"],
+            "graph": graph_fn.entry_of(*args).stats,
+            "eager_ms": wall_e, "graphed_ms": wall_g,
+            "graphed_p50_within_20ms": wall_g["p50"] <= BUDGET_MS,
+            "graphed_p99_within_30ms": wall_g["p99"] <= BUDGET_P99_MS}
+    emit({"phase": "graph_vs_eager", "card": card,
+          "solves_per_mode": GRAPH_SOLVES, "paths": graph_report})
+
+    # Phase 14: the on-device loop: a cold solve and LOOP_TICKS warm-started
+    # receding-horizon ticks on an all-stance hold, captured as one graph.
+    from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import \
+        build_centroidal_mpc_loop
+    stance = make_example_inputs(cfg, gait="stance")
+    loop = build_centroidal_mpc_loop(cfg, scp, n_ticks=LOOP_TICKS,
+                                     device=dev)
+    loop(*stance)  # capture
+    torch.cuda.synchronize()
+    reset_counts()
+    xs, fs = loop(*stance)
+    torch.cuda.synchronize()
+    want_loop = [SQP_ITERS * (LOOP_TICKS + 1), 0, 0, 0]
+    check(counts() == want_loop,
+          f"closed loop: one replay counted K1..K4 {counts()}x; expected "
+          f"{want_loop}")
+    check(tuple(xs.shape) == (LOOP_TICKS, sol1.x_traj.shape[-1])
+          and tuple(fs.shape) == (LOOP_TICKS, 4, 3),
+          f"closed loop: shapes {tuple(xs.shape)}, {tuple(fs.shape)}")
+    check(bool(torch.isfinite(xs).all()) and bool(torch.isfinite(fs).all()),
+          "closed loop: non-finite states or forces")
+    loop_fz = fs[:, :, 2].sum(dim=1)
+    mg = MASS * GRAVITY
+    check(bool(((loop_fz - mg).abs() < 0.05 * mg).all()),
+          f"closed loop: total Fz {loop_fz.tolist()} leaves m g = {mg} N "
+          "by more than 5 %")
+    dz = float((xs[-1, 2] - xs[0, 2]).abs())
+    check(dz < 0.01, f"closed loop: CoM height drifts by {dz} m")
+    cold = solver(*stance)
+    warm1 = solver(*stance, warm=(cold.x_traj, cold.u_traj))
+    tick0 = max_abs(fs[0], warm1.contact_force[..., 0])
+    check(tick0 <= 1e-4,
+          f"closed loop: tick 0 differs from the warm re-solve by {tick0} N")
+    xs64, fs64 = build_centroidal_mpc_loop(
+        cfg._replace(dtype=torch.float64), scp64, n_ticks=LOOP_TICKS,
+        device="cpu")(*stance)
+    loop_err = max_abs(fs.cpu(), fs64)
+    check(loop_err <= TOL_GRF,
+          f"closed loop: forces differ from the f64 CPU loop by {loop_err} N")
+    tr_loop = trace_counts(lambda: [t.cpu() for t in loop(*stance)])
+    check(tr_loop["kernels"] == want_loop,
+          f"closed loop: a profiled replay ran K1..K4 {tr_loop['kernels']}x;"
+          f" expected {want_loop}")
+    loop_wall = wall_spread(lambda: [t.cpu() for t in loop(*stance)], n=20,
+                            warmup=1)
+    emit({"phase": "closed_loop", "card": card, "ticks": LOOP_TICKS,
+          "closed_loop_hz": 1e3 * LOOP_TICKS / loop_wall["p50"],
+          "replay_ms": loop_wall, "k1_launches": counts()[0],
+          "replay": tr_loop, "graph": loop.entry_of(*stance).stats,
+          "total_fz_min_max": [float(loop_fz.min()), float(loop_fz.max())],
+          "com_z_drift": dz, "tick0_vs_warm_solve": tick0,
+          "force_err_vs_f64_cpu_loop": loop_err,
+          "state_err_vs_f64_cpu_loop": max_abs(xs.cpu(), xs64),
+          "tolerance": TOL_GRF})
+
+    # Phase 15: the legged planning node at the reference's scale, soft and
+    # pyramid cone, one SQP iteration per solve (the reference's real-time
+    # iteration), driven by the lock-step dummy loop, plant == model.
+    from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule, trot_template
+    from cheeta_mpc_tpu_torch.models.srbd_legged import srbd_step
+    from cheeta_mpc_tpu_torch.mpc.legged_node import (LeggedPlannerAssembly,
+                                                      PlannerSettings,
+                                                      default_stance_state)
+    from cheeta_mpc_tpu_torch.mpc.runtime import (MpcMrtInterface,
+                                                  SystemObservation,
+                                                  run_dummy_loop)
+    from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
+    node_report = {}
+    for mode, ncfg, want in (("soft", lcfg, [0, 0, 1, 0]),
+                             ("pyramid", lcfg_pyr, [1, 0, 0, 0])):
+        gait = GaitSchedule.stance(trot_template(NODE_TROT_CYCLE), t0=0.0)
+        gait.phase_transition_stance_time = 0.1
+        gait.insert_template(trot_template(NODE_TROT_CYCLE), insert_time=0.2)
+        x0 = default_stance_state(ncfg)
+        node = LeggedPlannerAssembly(
+            ncfg, gait, x0, v_cmd=np.array([NODE_SPEED, 0.0, 0.0]),
+            settings=PlannerSettings(sqp_iterations=1,
+                                     ipm_iterations=PYRAMID_IPM_ITERS),
+            device=dev)
+        solutions = []
+        node_solve = node._solve
+
+        def recording(*args, node_solve=node_solve, solutions=solutions,
+                      **kwargs):
+            sol = node_solve(*args, **kwargs)
+            solutions.append((sol, args[2]))
+            return sol
+
+        node._solve = recording
+
+        def plant(t, x, u, gait=gait, params=ncfg.params):
+            e = gait.get_mode_schedule(max(0.0, t - 1.0), t + 1.0)\
+                .contact_flags_at(t + 0.5 * NODE_MRT_DT)
+            return srbd_step(params, torch.as_tensor(x), torch.as_tensor(u),
+                             torch.as_tensor(np.asarray(e, np.float64)),
+                             dt=NODE_MRT_DT).numpy()
+
+        reset_counts()
+        res = run_dummy_loop(MpcMrtInterface(node.solve_fn), plant, x0=x0,
+                             mrt_dt=NODE_MRT_DT, mpc_update_ratio=NODE_RATIO,
+                             n_steps=NODE_STEPS)
+        # The first solve captures the graph after two warm-up solves.
+        want_run = [w * (res.solves + 2) for w in want]
+        check(counts() == want_run,
+              f"legged node ({mode}): K1..K4 counted {counts()}x over "
+              f"{res.solves} solves; expected {want_run}")
+        check(np.isfinite(res.states).all(),
+              f"legged node ({mode}): non-finite plant states")
+        fz_range = [np.inf, -np.inf]
+        pyr_viol = 0.0
+        for i, (sol, enable) in enumerate(solutions):
+            en = torch.as_tensor(enable, device=dev)
+            lo, hi = check_legged_forces(sol, en, f"legged node ({mode}), "
+                                         f"solve {i}")
+            fz_range = [min(fz_range[0], lo), max(fz_range[1], hi)]
+            if mode == "pyramid":
+                f = sol.forces
+                outside = torch.stack([
+                    f[..., 0].abs() - ncfg.friction_mu * f[..., 2],
+                    f[..., 1].abs() - ncfg.friction_mu * f[..., 2],
+                    -f[..., 2], f[..., 2] - ncfg.force_max]).amax(dim=0)
+                pyr_viol = max(pyr_viol, float((outside * en).max()))
+        check(pyr_viol <= TOL_PYRAMID,
+              f"legged node ({mode}): a stance force leaves the pyramid by "
+              f"{pyr_viol} N")
+        obs = SystemObservation(time=res.times[-1], state=res.states[-1])
+        tr_node = trace_counts(lambda: node.solve_fn(obs))
+        check(tr_node["kernels"] == want,
+              f"legged node ({mode}): a profiled solve ran K1..K4 "
+              f"{tr_node['kernels']}x; expected {want}")
+        steady = Benchmarker()
+        steady.samples_ms = node.bench.samples_ms[1:]  # after the capture
+        node_report[mode] = {
+            "solves": res.solves, "first_solve_ms": node.bench.samples_ms[0],
+            "solve_ms_p50": steady.percentile_ms(50),
+            "solve_ms_p99": steady.percentile_ms(99),
+            "solve_ms_max": max(steady.samples_ms),
+            "p50_within_20ms": steady.percentile_ms(50) <= BUDGET_MS,
+            "p99_within_30ms": steady.percentile_ms(99) <= BUDGET_P99_MS,
+            "counts_k1_k4": counts(), "replay": tr_node,
+            "total_fz_min_max": fz_range, "mg": LEGGED_MG,
+            "outside_pyramid": pyr_viol if mode == "pyramid" else None,
+            "progress_x_m": float(res.states[-1, 6] - x0[6]),
+            "height_change_max_m": float(np.abs(res.states[:, 8]
+                                                - x0[8]).max()),
+            "roll_pitch_max": float(np.abs(res.states[:, 10:12]).max()),
+            "last_metrics": node.last_metrics}
+    emit({"phase": "legged_node", "card": card, "horizon": LEGGED_HORIZON,
+          "speed": NODE_SPEED, "mrt_dt": NODE_MRT_DT,
+          "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO),
+          "seconds_simulated": NODE_MRT_DT * NODE_STEPS, **node_report})
+
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [

@@ -88,6 +88,33 @@ def test_default_device_is_the_card_and_raises_without_one():
         resolve_device("cuda:0")
 
 
+def test_real_time_path_defaults_to_the_card_and_raises_without_one():
+    """The graphed callable, the n-tick loop and the legged planning node
+    take ``device="cuda"`` by default and raise without a card; on
+    ``device="cpu"`` the graphed callable is the function itself."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for one without")
+    from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule, trot_template
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import LeggedMpcConfig
+    from cheeta_mpc_tpu_torch.mpc.legged_node import LeggedPlannerAssembly
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
+
+    def fn(x):
+        return x
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graphed(fn)
+    assert graphed(fn, "cpu") is fn
+    cfg = tm.CentroidalMpcConfig(horizon=4, weights=examples.TEST_WEIGHTS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.build_centroidal_mpc_loop(cfg)
+    lcfg = LeggedMpcConfig(horizon=4, **examples.LEGGED_TEST_WEIGHTS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeggedPlannerAssembly(lcfg, GaitSchedule.stance(trot_template()),
+                              examples.default_stance_state(lcfg),
+                              np.zeros(3))
+
+
 def test_converters_default_to_the_card_and_raise_without_one():
     """``convert`` is an entry point like the others: no CPU by default, so
     ``solve_ocp_qp_kernel(qp_data_from_numpy(d))`` cannot end up in the

@@ -72,7 +72,9 @@ def test_config_converts_one_to_one(solved):
     assert (jcfg.params.dt, jcfg.params.integrator) == (
         tcfg.params.dt, tcfg.params.integrator)
     assert tcfg.dtype == torch.float64 and tscp.qp_backend == 'riccati'
-    assert not hasattr(tl.LeggedMpcConfig, "from_task_info")
+    # Ported with the runtime; held against the JAX package's on a written
+    # task.info in tests/test_torch_info_config.py.
+    assert callable(tl.LeggedMpcConfig.from_task_info)
 
 
 def test_first_qp_leaf_by_leaf(solved):
