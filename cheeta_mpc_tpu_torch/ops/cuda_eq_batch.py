@@ -44,7 +44,6 @@ from cheeta_mpc_tpu_torch.ops.cuda_eq_riccati import (EQ_EPS, FLEET_ENTRY,
                                                       solve_eq_lqr_plain)
 from cheeta_mpc_tpu_torch.ops.ocpqp import _dyn_residual
 from cheeta_mpc_tpu_torch.ops.riccati import _no_inequality_solution
-from cheeta_mpc_tpu_torch.utils.cuda_graph import count_launch
 
 
 def out_of_scope_reason(data: OcpQpData) -> Optional[str]:
@@ -91,8 +90,7 @@ def solve_eq_lqr_fleet(data: OcpQpData, reg: float = 1e-9,
 
     CUDA tensors go through the kernel (float32 only, anything else
     raises); CPU tensors through the plain version. The launch counter
-    ``solve_eq_lqr_fleet.launches`` rises by one per kernel launch
-    (one captured in a CUDA graph counts once per replay)."""
+    ``solve_eq_lqr_fleet.launches`` rises by one per kernel launch."""
     reason = out_of_scope_reason(data)
     if reason is not None:
         raise NotImplementedError(f"solve_eq_lqr_fleet: {reason}")
@@ -100,7 +98,7 @@ def solve_eq_lqr_fleet(data: OcpQpData, reg: float = 1e-9,
         return solve_eq_lqr_fleet_plain(data, reg, eps)
     out = launch_eq_kernel(FLEET_ENTRY, data, reg, eps,
                            batch=data.dx0.shape[0], value_function=False)
-    count_launch(solve_eq_lqr_fleet)
+    solve_eq_lqr_fleet.launches += 1
     return _finish(data, out["dx"], out["du"], out["K"], out["k"])
 
 

@@ -57,7 +57,6 @@ from cheeta_mpc_tpu_torch.ops.cuda_ipm_riccati import (EQ_EPS, _check,
                                                        tensor_pointers)
 from cheeta_mpc_tpu_torch.ops.riccati import (_no_inequality_solution,
                                               solve_eq_lqr)
-from cheeta_mpc_tpu_torch.utils.cuda_graph import count_launch
 
 SINGLE_ENTRY, FLEET_ENTRY = "cheeta_eq_riccati_single", "cheeta_eq_riccati_fleet"
 # The section timers' phase classes, in the order the kernels write them
@@ -225,8 +224,7 @@ def solve_eq_lqr_kernel(data: OcpQpData, reg: float = 1e-9,
     CUDA tensors: unbatched float32 only — anything else raises, so no CUDA
     input is ever solved by another executor silently. CPU tensors: the
     plain version, any dtype and batch shape. The launch counter
-    ``solve_eq_lqr_kernel.launches`` rises by one per kernel launch
-    (one captured in a CUDA graph counts once per replay)."""
+    ``solve_eq_lqr_kernel.launches`` rises by one per kernel launch."""
     reason = eq_out_of_scope_reason(data)
     if reason is not None:
         raise NotImplementedError(f"solve_eq_lqr_kernel: {reason}")
@@ -238,7 +236,7 @@ def solve_eq_lqr_kernel(data: OcpQpData, reg: float = 1e-9,
            NotImplementedError)
     out = launch_eq_kernel(SINGLE_ENTRY, data, reg, eps,
                            batch=None, value_function=True)
-    count_launch(solve_eq_lqr_kernel)
+    solve_eq_lqr_kernel.launches += 1
     return _no_inequality_solution(
         data, out["dx"], out["du"],
         RiccatiGains(K=out["K"], k=out["k"], P=out["P"], p=out["p"]))

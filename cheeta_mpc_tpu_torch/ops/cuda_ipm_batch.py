@@ -45,7 +45,6 @@ from cheeta_mpc_tpu_torch.ops.cuda_ipm_riccati import (launch_ipm_kernel,
                                                        solve_ocp_qp_plain)
 from cheeta_mpc_tpu_torch.ops.ocpqp import (IpmSettings, _constraint_values,
                                             _dyn_residual)
-from cheeta_mpc_tpu_torch.utils.cuda_graph import count_launch
 
 
 def out_of_scope_reason(data: OcpQpData) -> Optional[str]:
@@ -95,8 +94,7 @@ def solve_ocp_qp_fleet(data: OcpQpData,
 
     CUDA tensors go through the kernel (float32 only, anything else
     raises); CPU tensors through the plain version. The launch counter
-    ``solve_ocp_qp_fleet.launches`` rises by one per kernel launch
-    (one captured in a CUDA graph counts once per replay)."""
+    ``solve_ocp_qp_fleet.launches`` rises by one per kernel launch."""
     if settings is None:
         settings = IpmSettings()
     reason = out_of_scope_reason(data)
@@ -107,7 +105,7 @@ def solve_ocp_qp_fleet(data: OcpQpData,
     batch = data.dx0.shape[0]
     out = launch_ipm_kernel("cheeta_ipm_riccati_fleet", data, settings,
                             batch=batch, gains=False)
-    count_launch(solve_ocp_qp_fleet)
+    solve_ocp_qp_fleet.launches += 1
     dx, du = out["dx"], out["du"]
     # Cheap per-problem diagnostics, all elementwise (the stationarity
     # residual is the kernel's own final guard evaluation).

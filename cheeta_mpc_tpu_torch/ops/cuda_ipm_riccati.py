@@ -48,7 +48,6 @@ from cheeta_mpc_tpu_torch.core.types import (OcpQpData, OcpQpSolution,
                                              RiccatiGains, symmetrize)
 from cheeta_mpc_tpu_torch.ops.ocpqp import (IpmSettings, _finish, _IpmState,
                                             dtype_clamps, solve_ocp_qp)
-from cheeta_mpc_tpu_torch.utils.cuda_graph import count_launch
 
 EQ_EPS = 1.0  # dual regularization of inactive equality rows
 FLEET_ENTRY = "cheeta_ipm_riccati_fleet"
@@ -364,8 +363,7 @@ def solve_ocp_qp_kernel(data: OcpQpData,
     silently). CPU tensors: the plain version, any dtype and batch shape.
     The Riccati factors stay in shared memory when they fit and go to a
     global scratch buffer when they do not. The launch counter
-    ``solve_ocp_qp_kernel.launches`` rises by one per kernel launch
-    (one captured in a CUDA graph counts once per replay)."""
+    ``solve_ocp_qp_kernel.launches`` rises by one per kernel launch."""
     if settings is None:
         settings = IpmSettings()
     _check(data.con is not None,
@@ -381,7 +379,7 @@ def solve_ocp_qp_kernel(data: OcpQpData,
     data = _masked_eq(data)
     out = launch_ipm_kernel("cheeta_ipm_riccati_single", data, settings,
                             batch=None, gains=True)
-    count_launch(solve_ocp_qp_kernel)
+    solve_ocp_qp_kernel.launches += 1
     # Final diagnostics in plain torch on the kernel's outputs.
     state = _IpmState(out["dx"], out["du"], out["s_l"], out["s_u"],
                       out["lam_l"], out["lam_u"])

@@ -20,6 +20,9 @@ the host one graph launch.
   graph and returns copies of its outputs, so that a later call never
   changes an earlier result. The graph packs its outputs into one buffer
   per dtype, so a call issues copies and one graph launch, no kernel.
+- A replay calls no kernel wrapper, so the wrappers' launch counters count
+  the warm-up calls and the capture only; a replay's kernels are counted by
+  name in a profiler trace (``chip_smoke.py``).
 
 On ``device="cpu"`` nothing is captured and the function runs as it is. On
 a CUDA device a failed capture raises; nothing runs eagerly in its place.
@@ -39,22 +42,6 @@ import torch
 from cheeta_mpc_tpu_torch.core.types import resolve_device
 
 WARMUP_CALLS = 2
-
-# Launches recorded by the capture in progress, by kernel wrapper: state of
-# the process, as the wrappers' counters are. A capture is one thread's
-# work; a kernel launched eagerly by another thread meanwhile would be
-# tallied with it.
-_tally: Optional[dict] = None
-
-
-def count_launch(wrapper) -> None:
-    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``: at
-    once, or, while a graph is being captured, once for every replay of
-    that graph (a capture records the launch; a replay runs it)."""
-    if _tally is not None:
-        _tally[wrapper] = _tally.get(wrapper, 0) + 1
-    else:
-        wrapper.launches += 1
 
 
 def _flatten(obj, leaves: list):
@@ -92,8 +79,8 @@ def _unflatten(struct, leaves):
 
 
 def _host_tensor(a) -> torch.Tensor:
-    if isinstance(a, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(a))
+    if isinstance(a, np.ndarray):  # ascontiguousarray makes 0-d arrays 1-d
+        return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     return a
 
 
@@ -156,7 +143,6 @@ class _Entry:
         self.copied = torch.cuda.Event()  # the staging buffers' last copy
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out_struct = self.out_layout = self.packed = None
-        self.tally: dict = {}
         self.stats: dict = {}
 
     def load(self, leaves) -> None:
@@ -199,7 +185,6 @@ def graphed(fn: Callable, device="cuda") -> Callable:
     graphs: dict = {}
 
     def capture(entry: _Entry) -> None:
-        global _tally
         args, kwargs = _unflatten(entry.struct, entry.static)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -214,17 +199,12 @@ def graphed(fn: Callable, device="cuda") -> Callable:
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        _tally = {}
-        try:
-            with torch.cuda.graph(graph):
-                out_leaves: list = []
-                entry.out_struct = _flatten(fn(*args, **kwargs), out_leaves)
-                entry.out_layout = _Layout(
-                    [(tuple(t.shape), t.dtype) for t in out_leaves])
-                entry.packed = entry.out_layout.pack(out_leaves)
-            entry.tally = _tally
-        finally:
-            _tally = None
+        with torch.cuda.graph(graph):
+            out_leaves: list = []
+            entry.out_struct = _flatten(fn(*args, **kwargs), out_leaves)
+            entry.out_layout = _Layout(
+                [(tuple(t.shape), t.dtype) for t in out_leaves])
+            entry.packed = entry.out_layout.pack(out_leaves)
         t1 = time.perf_counter()
         graph.instantiate()
         torch.cuda.synchronize(dev)
@@ -253,8 +233,6 @@ def graphed(fn: Callable, device="cuda") -> Callable:
             else:
                 entry.load(leaves)
             entry.graph.replay()
-            for wrapper, n in entry.tally.items():
-                wrapper.launches += n
             return entry.result()
 
     def entry_of(*args, **kwargs) -> Optional[_Entry]:

@@ -399,17 +399,17 @@ def compare_solutions(sol, ref, gains: bool, what: str) -> dict:
     return errs
 
 
-def trace_counts(call) -> dict:
+def trace_counts(call):
     """One ``call()`` under ``torch.profiler``: the host's kernel launches,
     graph launches and copies, the kernels K1..K4 by name on the device and
     their device time, every device operation (kernels, copies, fills) and
-    the device time of them all."""
+    the device time of them all; returned with what ``call()`` returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        call()
+        value = call()
         torch.cuda.synchronize()
     out = {"host_kernel_launches": 0, "graph_launches": 0,
            "host_copies": 0, "kernels": [0] * len(KERNEL_NAMES),
@@ -430,7 +430,7 @@ def trace_counts(call) -> dict:
             out["graph_launches"] += 1
         elif e.name.startswith("cudaMemcpy"):
             out["host_copies"] += 1
-    return out
+    return out, value
 
 
 def wall_spread(fn, n: int = GRAPH_SOLVES, warmup: int = 3) -> dict:
@@ -490,6 +490,7 @@ def main() -> int:
     from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as single_mod
     from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
     from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS, graphed
 
     k1, k1_plain = single_mod.solve_ocp_qp_kernel, single_mod.solve_ocp_qp_plain
     k2 = fleet_mod.solve_ocp_qp_fleet
@@ -506,6 +507,30 @@ def main() -> int:
 
     def counts():
         return [k.launches for k in kernels]
+
+    def graphed_run(what, call, want):
+        """A graphed path's main-path run: its first call (the warm-up
+        calls and the capture, each through the kernel wrappers, whose
+        counters count them) and then one replay under the profiler. A
+        replay calls no wrapper, so its kernels are counted by name in the
+        trace. Returns the trace and the replay's result."""
+        reset_counts()
+        call()
+        torch.cuda.synchronize()
+        want_capture = [(WARMUP_CALLS + 1) * w for w in want]
+        check(counts() == want_capture,
+              f"{what}: the first call (warm-up calls and capture) launched "
+              f"K1..K4 {counts()}x; expected {want_capture}")
+        reset_counts()
+        tr, value = trace_counts(call)
+        check(tr["kernels"] == want,
+              f"{what}: a profiled replay ran K1..K4 {tr['kernels']}x; "
+              f"expected {want}")
+        check(tr["graph_launches"] == 1 and counts() == [0, 0, 0, 0],
+              f"{what}: the second call made {tr['graph_launches']} graph "
+              f"launches and called the kernel wrappers {counts()}x; "
+              "expected one replay")
+        return tr, value
 
     # Phase 2: build.
     build.load_library()
@@ -662,18 +687,12 @@ def main() -> int:
         "kept_in_shared_memory_and_bytes": placements})
 
     # Phase 4: centroidal main path, batch 1. ``update_mpc`` runs one CUDA
-    # graph per input signature: the first call captures it (after two
-    # warm-up solves), so the counted run below is a replay, whose kernel
-    # launches the graph adds to the kernels' counts.
-    mpc.update_mpc(*one)
-    torch.cuda.synchronize()
-    reset_counts()
-    sol1 = mpc.update_mpc(*one)
-    torch.cuda.synchronize()
-    launches_k1 = k1.launches
-    check(counts() == [SQP_ITERS, 0, 0, 0],
-          f"centroidal batch-1 main path launched K1..K4 {counts()}x; "
-          f"expected {[SQP_ITERS, 0, 0, 0]}")
+    # graph per input signature: the first call captures it, every later
+    # call replays it (``graphed_run``).
+    tr1, sol1 = graphed_run("centroidal batch-1 main path",
+                            lambda: mpc.update_mpc(*one),
+                            [SQP_ITERS, 0, 0, 0])
+    launches_k1 = tr1["kernels"][0]
     grf = sol1.contact_force  # (legs, 3, N)
     for name in ("contact_force", "foot_pos", "x_traj", "u_traj", "merit"):
         check(bool(torch.isfinite(getattr(sol1, name)).all()),
@@ -699,17 +718,12 @@ def main() -> int:
           "step_size": sol1.step_size.tolist(),
           "convergence": int(sol1.convergence)})
 
-    # Phase 5: centroidal main path, fleet (its graph captured first, as
-    # in phase 4).
-    mpc.update_mpc(*many)
-    torch.cuda.synchronize()
-    reset_counts()
-    solf = mpc.update_mpc(*many)
-    torch.cuda.synchronize()
-    launches_k2 = k2.launches
-    check(counts() == [0, SQP_ITERS, 0, 0],
-          f"centroidal fleet main path launched K1..K4 {counts()}x; "
-          f"expected {[0, SQP_ITERS, 0, 0]}")
+    # Phase 5: centroidal main path, fleet (a graph of its own, as in
+    # phase 4).
+    trf, solf = graphed_run("centroidal fleet main path",
+                            lambda: mpc.update_mpc(*many),
+                            [0, SQP_ITERS, 0, 0])
+    launches_k2 = trf["kernels"][1]
     check(tuple(solf.contact_force.shape) == (FLEET, 4, 3, HORIZON),
           f"fleet GRF shape {solf.contact_force.shape}")
     for name in ("contact_force", "foot_pos", "x_traj", "u_traj", "merit"):
@@ -995,7 +1009,6 @@ def main() -> int:
     # on the same inputs, as numpy: the graphed solvers of the entry points
     # (the one CentroidalMPC.update_mpc calls; utils.cuda_graph.graphed
     # around the legged solver, as the legged planning node builds it).
-    from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
     glsolver = graphed(lsolver, dev)
     glsolver_pyr = graphed(lsolver_pyr, dev)
     graph_paths = (
@@ -1013,12 +1026,24 @@ def main() -> int:
     for name, eager, graph_fn, args, out_name, want in graph_paths:
         graph_fn(*args)  # captures the graph if this signature has none
         torch.cuda.synchronize()
+
+        def to_host(sol, out_name=out_name):
+            return getattr(sol, out_name).cpu(), sol.u_traj.cpu()
+
+        def replay(graph_fn=graph_fn, args=args, to_host=to_host):
+            sol = graph_fn(*args)
+            to_host(sol)
+            return sol
+
         reset_counts()
-        sol_g = graph_fn(*args)
-        torch.cuda.synchronize()
-        check(counts() == want,
-              f"{name}: one graphed solve counted K1..K4 {counts()}x; "
-              f"expected {want}")
+        tr, sol_g = trace_counts(replay)
+        check(tr["kernels"] == want and counts() == [0, 0, 0, 0],
+              f"{name}: a profiled replay ran K1..K4 {tr['kernels']}x and "
+              f"called their wrappers {counts()}x; expected {want} and none")
+        check(tr["host_kernel_launches"] == 0 and tr["graph_launches"] == 1,
+              f"{name}: a graphed solve made {tr['host_kernel_launches']} "
+              f"kernel launches and {tr['graph_launches']} graph launches "
+              "on the host; expected 0 and 1")
         sol_e = eager(*args)
         torch.cuda.synchronize()
         # A replay runs the kernels of the eager solve on the same inputs in
@@ -1031,19 +1056,7 @@ def main() -> int:
         bit_equal = all(torch.equal(getattr(sol_g, k), getattr(sol_e, k))
                         for k in diff)
         check(bit_equal, f"{name}: graphed and eager results differ: {diff}")
-
-        def to_host(sol, out_name=out_name):
-            return getattr(sol, out_name).cpu(), sol.u_traj.cpu()
-
-        tr = trace_counts(lambda: to_host(graph_fn(*args)))
-        check(tr["kernels"] == want,
-              f"{name}: a profiled replay ran K1..K4 {tr['kernels']}x; "
-              f"expected {want}")
-        check(tr["host_kernel_launches"] == 0 and tr["graph_launches"] == 1,
-              f"{name}: a graphed solve made {tr['host_kernel_launches']} "
-              f"kernel launches and {tr['graph_launches']} graph launches "
-              "on the host; expected 0 and 1")
-        tr_eager = trace_counts(lambda: to_host(eager(*args)))
+        tr_eager, _ = trace_counts(lambda: to_host(eager(*args)))
         wall_e = wall_spread(lambda: to_host(eager(*args)))
         wall_g = wall_spread(lambda: to_host(graph_fn(*args)))
         graph_report[name] = {
@@ -1065,15 +1078,9 @@ def main() -> int:
     stance = make_example_inputs(cfg, gait="stance")
     loop = build_centroidal_mpc_loop(cfg, scp, n_ticks=LOOP_TICKS,
                                      device=dev)
-    loop(*stance)  # capture
-    torch.cuda.synchronize()
-    reset_counts()
-    xs, fs = loop(*stance)
-    torch.cuda.synchronize()
     want_loop = [SQP_ITERS * (LOOP_TICKS + 1), 0, 0, 0]
-    check(counts() == want_loop,
-          f"closed loop: one replay counted K1..K4 {counts()}x; expected "
-          f"{want_loop}")
+    tr_loop, (xs, fs) = graphed_run("closed loop", lambda: loop(*stance),
+                                    want_loop)
     check(tuple(xs.shape) == (LOOP_TICKS, sol1.x_traj.shape[-1])
           and tuple(fs.shape) == (LOOP_TICKS, 4, 3),
           f"closed loop: shapes {tuple(xs.shape)}, {tuple(fs.shape)}")
@@ -1097,15 +1104,11 @@ def main() -> int:
     loop_err = max_abs(fs.cpu(), fs64)
     check(loop_err <= TOL_GRF,
           f"closed loop: forces differ from the f64 CPU loop by {loop_err} N")
-    tr_loop = trace_counts(lambda: [t.cpu() for t in loop(*stance)])
-    check(tr_loop["kernels"] == want_loop,
-          f"closed loop: a profiled replay ran K1..K4 {tr_loop['kernels']}x;"
-          f" expected {want_loop}")
     loop_wall = wall_spread(lambda: [t.cpu() for t in loop(*stance)], n=20,
                             warmup=1)
     emit({"phase": "closed_loop", "card": card, "ticks": LOOP_TICKS,
           "closed_loop_hz": 1e3 * LOOP_TICKS / loop_wall["p50"],
-          "replay_ms": loop_wall, "k1_launches": counts()[0],
+          "replay_ms": loop_wall, "k1_launches": tr_loop["kernels"][0],
           "replay": tr_loop, "graph": loop.entry_of(*stance).stats,
           "total_fz_min_max": [float(loop_fz.min()), float(loop_fz.max())],
           "com_z_drift": dz, "tick0_vs_warm_solve": tick0,
@@ -1159,11 +1162,14 @@ def main() -> int:
         res = run_dummy_loop(MpcMrtInterface(node.solve_fn), plant, x0=x0,
                              mrt_dt=NODE_MRT_DT, mpc_update_ratio=NODE_RATIO,
                              n_steps=NODE_STEPS)
-        # The first solve captures the graph after two warm-up solves.
-        want_run = [w * (res.solves + 2) for w in want]
-        check(counts() == want_run,
-              f"legged node ({mode}): K1..K4 counted {counts()}x over "
-              f"{res.solves} solves; expected {want_run}")
+        # The first solve captures the graph after the warm-up solves; every
+        # later solve replays it and calls no kernel wrapper.
+        capture_counts = counts()
+        want_run = [(WARMUP_CALLS + 1) * w for w in want]
+        check(capture_counts == want_run and len(node_solve.graphs) == 1,
+              f"legged node ({mode}): K1..K4 launched {capture_counts}x and "
+              f"{len(node_solve.graphs)} graphs captured over {res.solves} "
+              f"solves; expected {want_run} and one graph")
         check(np.isfinite(res.states).all(),
               f"legged node ({mode}): non-finite plant states")
         fz_range = [np.inf, -np.inf]
@@ -1184,10 +1190,14 @@ def main() -> int:
               f"legged node ({mode}): a stance force leaves the pyramid by "
               f"{pyr_viol} N")
         obs = SystemObservation(time=res.times[-1], state=res.states[-1])
-        tr_node = trace_counts(lambda: node.solve_fn(obs))
-        check(tr_node["kernels"] == want,
+        reset_counts()
+        tr_node, _ = trace_counts(lambda: node.solve_fn(obs))
+        check(tr_node["kernels"] == want and counts() == [0, 0, 0, 0]
+              and tr_node["graph_launches"] == 1,
               f"legged node ({mode}): a profiled solve ran K1..K4 "
-              f"{tr_node['kernels']}x; expected {want}")
+              f"{tr_node['kernels']}x in {tr_node['graph_launches']} graph "
+              f"launches and called their wrappers {counts()}x; expected "
+              f"{want} in one and none")
         steady = Benchmarker()
         steady.samples_ms = node.bench.samples_ms[1:]  # after the capture
         node_report[mode] = {
@@ -1197,7 +1207,7 @@ def main() -> int:
             "solve_ms_max": max(steady.samples_ms),
             "p50_within_20ms": steady.percentile_ms(50) <= BUDGET_MS,
             "p99_within_30ms": steady.percentile_ms(99) <= BUDGET_P99_MS,
-            "counts_k1_k4": counts(), "replay": tr_node,
+            "capture_counts_k1_k4": capture_counts, "replay": tr_node,
             "total_fz_min_max": fz_range, "mg": LEGGED_MG,
             "outside_pyramid": pyr_viol if mode == "pyramid" else None,
             "progress_x_m": float(res.states[-1, 6] - x0[6]),

@@ -1,6 +1,6 @@
 """PyTorch port: the host side of utils/cuda_graph.py, which holds no CUDA
 call: the call signature a graph is keyed on, the packing of a result nest
-into one buffer per dtype and back, and the launch counting of a capture.
+into one buffer per dtype and back, and the staging of host inputs.
 The capture and replay themselves need a card: ``chip_smoke.py`` phases
 ``graph_vs_eager``, ``closed_loop`` and ``legged_node`` hold every graphed
 path against its eager run there."""
@@ -75,21 +75,22 @@ def test_signature_keys_on_shapes_dtypes_and_given_keywords():
     hash(key(a, warm=(a, b), dts=a))
 
 
-def test_capture_counts_a_launch_once_per_replay():
-    """Outside a capture a launch counts at once; inside one it is recorded
-    in the capture's tally, which every replay adds."""
-
-    def wrapper():
-        pass
-
-    wrapper.launches = 0
-    cg.count_launch(wrapper)
-    assert wrapper.launches == 1
-    cg._tally = {}
-    try:
-        cg.count_launch(wrapper)
-        cg.count_launch(wrapper)
-        tally = cg._tally
-    finally:
-        cg._tally = None
-    assert wrapper.launches == 1 and tally == {wrapper: 2}
+def test_host_inputs_stage_into_one_buffer_per_dtype():
+    """Host inputs of any memory layout (transposed, strided, CPU tensors)
+    copied into the views of one staging buffer per dtype arrive whole,
+    each in its own slot, and the buffer holds them in slot order."""
+    rng = np.random.default_rng(1)
+    base = rng.standard_normal((4, 6))
+    inputs = [base.T, base[:, ::2], np.arange(5, dtype=np.int32),
+              torch.as_tensor(rng.standard_normal((2, 3))).t(),
+              np.array(rng.standard_normal())]
+    layout = cg._Layout([cg._leaf_signature(a) for a in inputs])
+    buffers = layout.buffers()
+    assert {d: b.numel() for d, b in buffers.items()} == {
+        torch.float64: 24 + 12 + 6 + 1, torch.int32: 5}
+    for src, dst in zip(inputs, layout.views(buffers)):
+        dst.copy_(cg._host_tensor(src))
+    for src, view in zip(inputs, layout.views(buffers)):
+        assert torch.equal(view, torch.as_tensor(np.asarray(src)))
+    assert torch.equal(buffers[torch.float64][:24],
+                       torch.as_tensor(base.T.reshape(-1)))
