@@ -7,8 +7,8 @@ one CUDA graph per call signature in place of ``jit``, and hand-written
 CUDA kernels (``csrc/``, built by ``native/build.py`` at first launch) in
 place of the Pallas kernels.
 
-Ported so far — the centroidal MPC main path, the legged SRBD MPC and the
-real-time planning path on top of them:
+Ported so far — the centroidal MPC main path, the legged SRBD MPC, the
+real-time planning path on top of them and the deployed runtime around it:
 
 - ``core.types``            problem/solution containers
 - ``ops.linalg_small``      SPD inverse of the torch executor
@@ -34,7 +34,15 @@ real-time planning path on top of them:
                             soft and pyramid friction cones, end-effector
                             constraint forms, the legged MPC
 - ``mpc.legged_node``       the legged planning node (gait, swing, grid, warm
-                            start and commands behind one ``solve_fn``)
+                            start and commands behind one ``solve_fn``), SQP
+                            or DDP
+- ``solvers.ddp``, ``mpc.legged_ddp``
+                            Gauss-Newton DDP (plain torch ops, as the JAX
+                            package's has no kernel) and the legged DDP task
+- ``transport``, ``native``  wire format, in-process and shared-memory buses
+                            (C++ built with g++ at first use), MPC/MRT nodes
+- ``cli``, ``viz``          the demo, the two-process launch, the command
+                            terminals; CoP, support polygon, PNG rendering
 - ``mpc.runtime``, ``mpc.loopshaping``, ``mpc.solver_observer``,
   ``gait.receiver``, ``utils.info_config``, ``utils.timing``
                             the MPC/MRT runtime, config files and timers

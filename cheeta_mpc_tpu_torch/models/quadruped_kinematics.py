@@ -34,11 +34,18 @@ _CONSTS: dict = {}
 
 
 def const_tensor(values, like: torch.Tensor) -> torch.Tensor:
-    """A constant tensor of ``like``'s dtype and device, made once."""
+    """A constant tensor of ``like``'s dtype and device, made once.
+
+    It is made outside any ``torch.func`` transform that may be running:
+    inside ``grad`` or ``jacfwd`` a new tensor is wrapped for that
+    transform's level, and a cached wrapper would leak into later calls
+    (the DDP solver takes Hessians of the kinematics by ``jacfwd`` over
+    ``grad``)."""
     key = (values, like.dtype, like.device)
     out = _CONSTS.get(key)
     if out is None:
-        out = torch.tensor(values, dtype=like.dtype, device=like.device)
+        with torch._C._DisableFuncTorch():
+            out = torch.tensor(values, dtype=like.dtype, device=like.device)
         _CONSTS[key] = out
     return out
 

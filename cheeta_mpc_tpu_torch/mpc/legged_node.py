@@ -9,10 +9,12 @@ warm starting from the previous policy, behind one
 ``solve_fn(obs) -> PolicyData`` that :class:`~cheeta_mpc_tpu_torch.mpc.
 runtime.MpcMrtInterface` drives.
 
-The solver is always called with ``warm=`` and ``dts=``, so one capture
+The SQP solver is always called with ``warm=`` and ``dts=``, so one capture
 serves every tick: the first tick hands it the solver's own initializer
 (hold the state, weight-compensating input), as the JAX node does to keep
-one jit signature. The DDP node (``solver='ddp'``) is not ported yet.
+one jit signature. The DDP solver (``solver='ddp'``, the
+``LeggedRobotDdpMpcNode`` role) takes no warm start, as in the JAX node,
+and is captured the same way.
 """
 
 from __future__ import annotations
@@ -32,11 +34,13 @@ from cheeta_mpc_tpu_torch.gait.schedule import (GaitSchedule,
 from cheeta_mpc_tpu_torch.gait.swing import (SwingConfig,
                                              SwingTrajectoryPlanner)
 from cheeta_mpc_tpu_torch.models.srbd_legged import weight_compensating_input
+from cheeta_mpc_tpu_torch.mpc.legged_ddp import build_legged_ddp_solver
 from cheeta_mpc_tpu_torch.mpc.legged_mpc import (
     LeggedMpcConfig, build_legged_solver, make_velocity_command_reference)
 from cheeta_mpc_tpu_torch.mpc.runtime import (PolicyData, SystemObservation,
                                               shift_warm_start)
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+from cheeta_mpc_tpu_torch.solvers.ddp import DdpSettings
 from cheeta_mpc_tpu_torch.solvers.discretization import (
     discretize_fixed, interval_contact_flags)
 from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
@@ -46,12 +50,15 @@ from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
 
 @dataclass
 class PlannerSettings:
-    """Knobs of the planning node (solver choice + loop config); the JAX
-    package's, less the DDP settings, which come with the DDP solver."""
+    """Knobs of the planning node (solver choice + loop config)."""
 
-    solver: str = "sqp"  # 'sqp'; 'ddp' is not ported yet
+    solver: str = "sqp"  # 'sqp' (LeggedRobotSqpMpcNode) | 'ddp' (DdpMpcNode)
     sqp_iterations: int = 2
     ipm_iterations: int = 10
+    ddp_iterations: int = 5
+    # Full DDP settings object (e.g. DdpSettings.from_task_info on the
+    # task.info ddp block); when set it wins over ddp_iterations.
+    ddp: Optional[DdpSettings] = None
     com_height: Optional[float] = None  # default: from initial stance
     terrain_height: float = 0.0
     schedule_margin: float = 1.5  # seconds of schedule kept past the horizon
@@ -76,11 +83,7 @@ class LeggedPlannerAssembly:
                  x0: np.ndarray, v_cmd: np.ndarray,
                  settings: PlannerSettings = PlannerSettings(),
                  swing_config: SwingConfig = None, device="cuda"):
-        if settings.solver == "ddp":
-            raise NotImplementedError(
-                "solver='ddp' (solvers/ddp.py, mpc/legged_ddp.py) is not "
-                "ported yet: ROADMAP queue 1 item 12")
-        if settings.solver != "sqp":
+        if settings.solver not in ("sqp", "ddp"):
             raise ValueError(f"unknown solver {settings.solver!r}")
         dev = resolve_device(device)
         self.cfg = cfg
@@ -100,9 +103,26 @@ class LeggedPlannerAssembly:
         self._v_cmd = np.asarray(v_cmd, np.float64)
         self.bench = Benchmarker()
         self._prev_policy: Optional[PolicyData] = None
-        scp = ScpSettings(iterations=settings.sqp_iterations,
-                          ipm=IpmSettings(iters=settings.ipm_iterations))
-        self._solve = graphed(build_legged_solver(cfg, scp, device=dev), dev)
+        if settings.solver == "sqp":
+            scp = ScpSettings(iterations=settings.sqp_iterations,
+                              ipm=IpmSettings(iters=settings.ipm_iterations))
+            solve = build_legged_solver(cfg, scp, device=dev)
+        elif settings.ddp is not None:
+            # Configured from the task.info ddp block. The file's
+            # constraintPenaltyInitialValue (20.0) is meant as the START of
+            # an AL growth schedule the reference runs; this DDP uses a
+            # single fixed penalty, so floor it at 1e2 (the solver's
+            # effective default) like cli/legged_demo.py does — otherwise
+            # stance/swing equality enforcement weakens ~5x.
+            ddp = settings.ddp
+            solve = build_legged_ddp_solver(
+                cfg, ddp, eq_penalty=max(ddp.constraint_penalty, 1e2),
+                device=dev)
+        else:
+            solve = build_legged_ddp_solver(
+                cfg, DdpSettings(iterations=settings.ddp_iterations),
+                device=dev)
+        self._solve = graphed(solve, dev)
 
     # -- command side (any thread) -------------------------------------
     def set_velocity_command(self, v_cmd: np.ndarray) -> None:
@@ -149,33 +169,41 @@ class LeggedPlannerAssembly:
         z_pos, z_vel = z_pos.T, z_vel.T
 
         dt_np = self._np_dtype
-        if self._prev_policy is not None:
-            xw, uw = shift_warm_start(self._prev_policy, times)
-        else:
-            # First tick: the solver's own initializer (hold state +
-            # weight-compensating input, LeggedRobotInitializer role), so
-            # that `warm` is always given and one capture serves every tick.
-            xw = np.tile(x[None], (N + 1, 1))
-            uw = weight_compensating_input(
-                self.cfg.params,
-                torch.as_tensor(enable.astype(dt_np))).numpy()
+        kw = {}
+        if s.solver == "sqp":
+            if self._prev_policy is not None:
+                xw, uw = shift_warm_start(self._prev_policy, times)
+            else:
+                # First tick: the solver's own initializer (hold state +
+                # weight-compensating input, LeggedRobotInitializer role), so
+                # that `warm` is always given and one capture serves every
+                # tick.
+                xw = np.tile(x[None], (N + 1, 1))
+                uw = weight_compensating_input(
+                    self.cfg.params,
+                    torch.as_tensor(enable.astype(dt_np))).numpy()
+            kw["warm"] = (xw.astype(dt_np), uw.astype(dt_np))
         with self.bench.phase("mpc_solve"):
             sol = self._solve(x.astype(dt_np), x_ref.astype(dt_np),
                               enable.astype(dt_np), z_pos.astype(dt_np),
-                              z_vel.astype(dt_np),
-                              warm=(xw.astype(dt_np), uw.astype(dt_np)),
-                              dts=dts.astype(dt_np))
+                              z_vel.astype(dt_np), dts=dts.astype(dt_np),
+                              **kw)
             u_host = _host(sol.u_traj)
         solve_ms = self.bench.phase("mpc_solve").latest_ms
         self.bench.record_solve_ms(solve_ms)
-        perf = sol.performance
-        self.last_metrics = {
-            "t": round(t, 6), "solve_ms": round(solve_ms, 3),
-            "merit": float(sol.merit), "cost": float(perf.cost),
-            "dyn_sse": float(perf.dyn_violation_sse),
-            "eq_sse": float(perf.eq_constraint_sse),
-            "ineq_sse": float(perf.ineq_constraint_sse),
-            "convergence": int(sol.convergence)}
+        self.last_metrics = {"t": round(t, 6), "solve_ms": round(solve_ms, 3)}
+        if s.solver == "sqp":
+            perf = sol.performance
+            self.last_metrics.update({
+                "merit": float(sol.merit), "cost": float(perf.cost),
+                "dyn_sse": float(perf.dyn_violation_sse),
+                "eq_sse": float(perf.eq_constraint_sse),
+                "ineq_sse": float(perf.ineq_constraint_sse),
+                "convergence": int(sol.convergence)})
+        else:
+            self.last_metrics.update({"cost": float(sol.cost),
+                                      "converged": bool(sol.converged)})
+        # The DDP value-function surface fills the same policy fields.
         policy = PolicyData(times=times, x_traj=_host(sol.x_traj),
                             u_traj=u_host, K=_host(sol.gains_K),
                             P=_host(sol.gains_P), p=_host(sol.gains_p))

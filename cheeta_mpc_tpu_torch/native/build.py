@@ -1,4 +1,5 @@
-"""Builds the CUDA kernels of ``csrc/`` at first use and loads them.
+"""Builds the CUDA kernels of ``csrc/`` and the transport's C++ buses at
+first use and loads them.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into an object
 file (one compiler process per source, all started together), the objects
@@ -9,8 +10,16 @@ carries the hash of all sources, so a changed source is rebuilt and an
 unchanged one is reused. A build or load failure raises with the compiler's
 output; nothing falls back.
 
-Importing this module needs no compiler: the build happens inside
-:func:`load_library`, which the kernel wrappers call at their first launch.
+The two buses of the transport (``native/policy_bus.cpp``, threads of one
+process; ``native/shm_bus.cpp``, processes sharing a POSIX shared-memory
+segment) are host code: :func:`load_policy_bus` and :func:`load_shm_bus`
+build each with ``g++`` into the same directory, under a name that carries
+the hash of its source, and load it with ``ctypes``. A failed build raises
+:class:`NativeBuildError` with the compiler's output.
+
+Importing this module needs no compiler: the builds happen inside
+:func:`load_library`, which the kernel wrappers call at their first launch,
+and inside the bus loaders.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -38,6 +48,10 @@ build_log: str = ""  # compiler output (registers, shared memory, spills)
 
 class KernelCompileError(RuntimeError):
     """``nvcc`` is missing, failed, or the library did not load."""
+
+
+class NativeBuildError(RuntimeError):
+    """``g++`` is missing or failed for one of the transport's buses."""
 
 
 def _find_nvcc() -> str:
@@ -172,3 +186,111 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.cheeta_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
+
+
+# -- the transport's buses (g++, host code) ---------------------------------
+
+NATIVE_DIR = Path(__file__).resolve().parent
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+_bus_lock = threading.Lock()
+_buses: dict = {}
+
+
+def _build_host_library(src: Path, stem: str, extra=()) -> Path:
+    """``src`` built with ``g++`` into ``BUILD_DIR``, once per content."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS + tuple(extra)).encode())
+    h.update(src.read_bytes())
+    so_path = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    if so_path.exists():
+        return so_path
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise NativeBuildError(
+            f"g++ not found on PATH: {src.name} is built from source at "
+            "first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, str(src), "-o", str(tmp), *extra]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise NativeBuildError(
+            f"g++ failed for {src.name}:\n$ {' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp, so_path)  # atomic: a concurrent loader sees all or none
+    return so_path
+
+
+def _declare_policy_bus(lib: ctypes.CDLL) -> None:
+    lib.bus_create.restype = ctypes.c_void_p
+    lib.bus_create.argtypes = [ctypes.c_int]
+    lib.bus_destroy.restype = None
+    lib.bus_destroy.argtypes = [ctypes.c_void_p]
+    lib.bus_publish.restype = ctypes.c_int64
+    lib.bus_publish.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_char_p, ctypes.c_uint32]
+    lib.bus_consume.restype = ctypes.c_int64
+    lib.bus_consume.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_char_p, ctypes.c_uint32,
+                                ctypes.POINTER(ctypes.c_uint32)]
+    lib.bus_wait.restype = ctypes.c_int64
+    lib.bus_wait.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_uint64, ctypes.c_int]
+    lib.bus_seq.restype = ctypes.c_uint64
+    lib.bus_seq.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+
+def _declare_shm_bus(lib: ctypes.CDLL) -> None:
+    lib.shm_bus_create.restype = ctypes.c_void_p
+    lib.shm_bus_create.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                   ctypes.c_uint32]
+    lib.shm_bus_attach.restype = ctypes.c_void_p
+    lib.shm_bus_attach.argtypes = [ctypes.c_char_p]
+    lib.shm_bus_close.restype = None
+    lib.shm_bus_close.argtypes = [ctypes.c_void_p]
+    lib.shm_bus_unlink.restype = ctypes.c_int
+    lib.shm_bus_unlink.argtypes = [ctypes.c_char_p]
+    lib.shm_bus_ntopics.restype = ctypes.c_int
+    lib.shm_bus_ntopics.argtypes = [ctypes.c_void_p]
+    lib.shm_bus_capacity.restype = ctypes.c_uint32
+    lib.shm_bus_capacity.argtypes = [ctypes.c_void_p]
+    lib.shm_bus_publish.restype = ctypes.c_int64
+    lib.shm_bus_publish.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_char_p, ctypes.c_uint32]
+    lib.shm_bus_consume.restype = ctypes.c_int64
+    lib.shm_bus_consume.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_char_p, ctypes.c_uint32,
+                                    ctypes.POINTER(ctypes.c_uint32)]
+    lib.shm_bus_wait.restype = ctypes.c_int64
+    lib.shm_bus_wait.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_uint64, ctypes.c_int]
+    lib.shm_bus_seq.restype = ctypes.c_uint64
+    lib.shm_bus_seq.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+
+def _load_bus(src: str, stem: str, declare, extra=()) -> ctypes.CDLL:
+    with _bus_lock:
+        lib = _buses.get(stem)
+        if lib is None:
+            path = _build_host_library(NATIVE_DIR / src, stem, extra)
+            try:
+                lib = ctypes.CDLL(str(path))
+                declare(lib)
+            except (OSError, AttributeError) as exc:
+                raise NativeBuildError(f"could not load {path}: {exc}") \
+                    from exc
+            _buses[stem] = lib
+        return lib
+
+
+def load_policy_bus() -> ctypes.CDLL:
+    """The in-process seqlock bus (``native/policy_bus.cpp``), built first
+    if its source changed."""
+    return _load_bus("policy_bus.cpp", "libpolicybus", _declare_policy_bus)
+
+
+def load_shm_bus() -> ctypes.CDLL:
+    """The cross-process shared-memory bus (``native/shm_bus.cpp``), built
+    first if its source changed."""
+    return _load_bus("shm_bus.cpp", "libshmbus", _declare_shm_bus,
+                     extra=("-lrt",))

@@ -7,6 +7,11 @@ batched ``torch.linalg`` call has no such problem, so the explicit SPD
 inverse here is a Cholesky inverse. In f64 the two agree to roundoff. The
 CUDA kernels do not use this: they carry their own equilibrated Gauss-Jordan
 inverse (``ops/cuda_ipm_riccati.py``).
+
+The DDP solver's Riccati pass meets symmetric matrices that are not
+positive definite (the exact Hessian of a penalty cost), which the JAX
+package's Schur-complement inverse inverts all the same and a Cholesky
+factorization refuses: :func:`sym_inverse` inverts them by LU.
 """
 
 from __future__ import annotations
@@ -27,4 +32,13 @@ def spd_inverse(G: torch.Tensor) -> torch.Tensor:
     X = torch.cholesky_inverse(L)
     bad = (info != 0)[..., None, None]
     X = torch.where(bad, torch.full_like(X, float("nan")), X)
+    return 0.5 * (X + X.transpose(-1, -2))
+
+
+def sym_inverse(G: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of (batched) symmetric matrices that need not be
+    positive definite (LU with partial pivoting), symmetrized. ``inv_ex``
+    checks nothing on the host, so the call waits for nothing; a singular
+    input yields inf or NaN."""
+    X = torch.linalg.inv_ex(G).inverse
     return 0.5 * (X + X.transpose(-1, -2))

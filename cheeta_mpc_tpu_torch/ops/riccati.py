@@ -56,10 +56,11 @@ class RiccatiFactors(NamedTuple):
     P: torch.Tensor  # (..., N+1, nx, nx)
 
 
-def riccati_factorize(dyn: DynamicsLin, Q, R, S,
-                      reg: float = 0.0) -> RiccatiFactors:
+def riccati_factorize(dyn: DynamicsLin, Q, R, S, reg: float = 0.0,
+                      inverse=spd_inverse) -> RiccatiFactors:
     """Backward matrix pass. Q: (..., N+1, nx, nx), R: (..., N, nu, nu),
-    S: (..., N, nu, nx)."""
+    S: (..., N, nu, nx). ``inverse`` inverts G (the DDP solver passes
+    ``linalg_small.sym_inverse``: its G need not be positive definite)."""
     N = R.shape[-3]
     nu = R.shape[-1]
     eye_u = torch.eye(nu, dtype=R.dtype, device=R.device)
@@ -71,7 +72,7 @@ def riccati_factorize(dyn: DynamicsLin, Q, R, S,
         PB = P_next @ B
         G = R[..., k, :, :] + _t(B) @ PB + reg * eye_u
         H = S[..., k, :, :] + _t(B) @ PA
-        Ginv = spd_inverse(symmetrize(G))
+        Ginv = inverse(symmetrize(G))
         K = -Ginv @ H
         P_next = symmetrize(Q[..., k, :, :] + _t(A) @ PA + _t(H) @ K)
         Ks.append(K)

@@ -29,6 +29,7 @@ stage-stacked LQ data at an iterate, ``performance(x, u)`` a
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -78,9 +79,53 @@ class ScpSettings(NamedTuple):
     # Convergence classification tolerances.
     cost_tol: float = 1e-4
     delta_tol: float = 1e-6
-    # Kept so settings convert one to one from the JAX package. The port
-    # has one f32 matmul precision: full f32 (see solve_nonlinear_ocp).
+    # f32 matmul precision of the solve, by the names torch and JAX share:
+    # 'highest' (full f32), 'high' (TF32), 'medium' (bf16 where the backend
+    # has it). Scoped to the solve (see matmul_precision below).
     matmul_precision: str = 'highest'
+
+
+MATMUL_PRECISIONS = ("highest", "high", "medium")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """Run the body at one f32 matmul precision and give the caller's back
+    on exit, errors included — the counterpart of
+    ``jax.default_matmul_precision``. A capture of the body (a CUDA graph)
+    records the cuBLAS algorithms picked under this precision.
+
+    The caller's setting is saved as it was made: through the legacy flags
+    (``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.set_float32_matmul_precision``), or, where torch refuses to
+    read those because the caller used the per-backend ``fp32_precision``
+    settings, through those; the body's setting is made the same way, as
+    torch asks that the two not be mixed."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"unknown matmul_precision {precision!r}; expected "
+                         f"one of {MATMUL_PRECISIONS}")
+    cuda_mm = torch.backends.cuda.matmul
+    mkldnn_mm = torch.backends.mkldnn.matmul
+    try:
+        legacy = (cuda_mm.allow_tf32, torch.get_float32_matmul_precision())
+    except RuntimeError:  # set through the per-backend settings
+        legacy = None
+        saved = (cuda_mm.fp32_precision, mkldnn_mm.fp32_precision)
+        cuda_mm.fp32_precision = ("ieee" if precision == "highest"
+                                  else "tf32")
+        mkldnn_mm.fp32_precision = {"highest": "ieee", "high": "tf32",
+                                    "medium": "bf16"}[precision]
+    else:
+        torch.set_float32_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        if legacy is None:
+            cuda_mm.fp32_precision, mkldnn_mm.fp32_precision = saved
+        else:
+            torch.set_float32_matmul_precision(legacy[1])
+            if cuda_mm.allow_tf32 != legacy[0]:
+                cuda_mm.allow_tf32 = legacy[0]
 
 
 class StepInfo(NamedTuple):
@@ -141,12 +186,15 @@ def solve_nonlinear_ocp(
     # f32 matmul precision: TF32 (10-bit mantissa) is on this card what the
     # one-pass-bf16 matmul is on the JAX package's target — over a long
     # Riccati recursion at barrier conditioning ~1/mu it compounds to
-    # newtons of force error. PyTorch's defaults are already full f32 for
-    # matmuls; they are pinned here so that no caller's global setting can
-    # move the solver off its accuracy floor.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    # newtons of force error. The settings' precision ('highest' by
+    # default) holds for the solve and the caller's comes back after it.
+    with matmul_precision(settings.matmul_precision):
+        return _solve_nonlinear_ocp(linearize, performance, x_init, u_init,
+                                    settings)
 
+
+def _solve_nonlinear_ocp(linearize, performance, x_init, u_init,
+                         settings: ScpSettings) -> ScpResult:
     if settings.qp_backend == 'riccati_kernel':
         from cheeta_mpc_tpu_torch.ops.cuda_ipm_batch import \
             make_fleet_qp_solver

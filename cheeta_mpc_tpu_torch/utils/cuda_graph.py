@@ -9,7 +9,14 @@ the host one graph launch.
 - The signature is what ``jax.jit`` keys its cache on: the shape and dtype of
   every array argument (numpy arrays, tensors, tuples of them such as
   ``warm``), the value of every other argument, and which keyword arguments
-  are given (``None`` counts as not given).
+  are given (``None`` counts as not given). A Python ``float`` is staged
+  like an array, as a 0-d float64 input, so its value is not part of the
+  signature (``jax.jit`` traces it too); ``int``, ``bool``, ``str`` and
+  ``None`` are, since solvers branch and size on them.
+- A callable captures at most ``MAX_CAPTURES`` signatures. A call past
+  that raises :class:`RecaptureError`, naming the part of the signature
+  that keeps changing, rather than capturing (and holding a private memory
+  pool for) one graph per call.
 - Before a capture, two warm-up calls run on a side stream: they load the
   kernels' library, make the constants a solver keeps after its first call,
   create the cuBLAS handles and load CUDA modules lazily.
@@ -42,25 +49,35 @@ import torch
 from cheeta_mpc_tpu_torch.core.types import resolve_device
 
 WARMUP_CALLS = 2
+MAX_CAPTURES = 16  # call signatures one graphed callable captures at most
+
+_ARRAYS = (torch.Tensor, np.ndarray)
+_INPUT_LEAVES = _ARRAYS + (float,)  # Python floats are staged as 0-d inputs
 
 
-def _flatten(obj, leaves: list):
+class RecaptureError(RuntimeError):
+    """A graphed callable was called with more signatures than it may
+    capture."""
+
+
+def _flatten(obj, leaves: list, leaf_types=_INPUT_LEAVES):
     """The structure of ``obj`` (a nest of tuples, NamedTuples, lists,
-    dicts and dataclasses) with each array replaced by its index in
-    ``leaves``, to which it is appended; hashable where the nest's
-    non-array values are."""
-    if isinstance(obj, (torch.Tensor, np.ndarray)):
+    dicts and dataclasses) with each instance of ``leaf_types`` replaced by
+    its index in ``leaves``, to which it is appended; hashable where the
+    nest's other values are."""
+    if isinstance(obj, leaf_types):
         leaves.append(obj)
         return ("leaf", len(leaves) - 1)
     if isinstance(obj, dict):
-        return ("dict", tuple((k, _flatten(v, leaves))
+        return ("dict", tuple((k, _flatten(v, leaves, leaf_types))
                               for k, v in sorted(obj.items())))
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return (type(obj), tuple((f.name, _flatten(getattr(obj, f.name),
-                                                   leaves))
+                                                   leaves, leaf_types))
                                  for f in dataclasses.fields(obj)))
     if isinstance(obj, (tuple, list)):
-        return (type(obj), tuple(_flatten(v, leaves) for v in obj))
+        return (type(obj), tuple(_flatten(v, leaves, leaf_types)
+                                 for v in obj))
     return ("value", obj)
 
 
@@ -81,12 +98,71 @@ def _unflatten(struct, leaves):
 def _host_tensor(a) -> torch.Tensor:
     if isinstance(a, np.ndarray):  # ascontiguousarray makes 0-d arrays 1-d
         return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
+    if isinstance(a, float):
+        return torch.tensor(a, dtype=torch.float64)
     return a
 
 
 def _leaf_signature(a):
     t = _host_tensor(a)
     return tuple(t.shape), t.dtype
+
+
+def _signature(args, kwargs):
+    """The call signature (``(structure, leaf shapes and dtypes)``) of a
+    call, and the call's leaves."""
+    kwargs = {k: v for k, v in kwargs.items() if v is not None}
+    leaves: list = []
+    struct = _flatten((args, kwargs), leaves)
+    return (struct, tuple(_leaf_signature(a) for a in leaves)), leaves
+
+
+def _signature_parts(key) -> dict:
+    """``{path: what the signature holds there}`` of a call signature, with
+    paths such as ``args[1]`` or ``kwargs['warm'][0]``."""
+    (_, (args, kwargs)), leaf_sigs = key
+    parts = {}
+
+    def walk(node, path):
+        kind, body = node
+        if kind == "leaf":
+            shape, dtype = leaf_sigs[body]
+            parts[path] = f"array of shape {shape}, {dtype}"
+        elif kind == "value":
+            parts[path] = f"value {body!r}"
+        else:
+            name = kind if isinstance(kind, str) else kind.__name__
+            parts[path] = f"{name} of {len(body)}"
+            keyed = kind == "dict" or dataclasses.is_dataclass(kind)
+            for i, item in enumerate(body):
+                k, child = item if keyed else (i, item)
+                walk(child, f"{path}[{k!r}]" if kind == "dict"
+                     else f"{path}.{k}" if keyed else f"{path}[{k}]")
+
+    for i, child in enumerate(args[1]):
+        walk(child, f"args[{i}]")
+    for k, child in kwargs[1]:
+        walk(child, f"kwargs[{k!r}]")
+    return parts
+
+
+def _check_capture_bound(graphs: dict, key, name: str) -> None:
+    """Raise :class:`RecaptureError` if ``graphs`` is full; the message
+    names what differs between ``key`` and the last captured signature."""
+    if len(graphs) < MAX_CAPTURES:
+        return
+    new = _signature_parts(key)
+    last = _signature_parts(next(reversed(graphs)))
+    changed = [f"{path}: {last.get(path, 'absent')} -> "
+               f"{new.get(path, 'absent')}"
+               for path in sorted(set(new) | set(last))
+               if new.get(path) != last.get(path)]
+    raise RecaptureError(
+        f"{name}: a new call signature past the bound of {MAX_CAPTURES} "
+        f"captures; against the last one captured, {'; '.join(changed)}. "
+        "An int, bool, str or None argument is part of the signature (an "
+        "array's value or a float's is not): pass a value that changes from "
+        "call to call as an array or a float.")
 
 
 class _Layout:
@@ -201,7 +277,8 @@ def graphed(fn: Callable, device="cuda") -> Callable:
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             out_leaves: list = []
-            entry.out_struct = _flatten(fn(*args, **kwargs), out_leaves)
+            entry.out_struct = _flatten(fn(*args, **kwargs), out_leaves,
+                                        _ARRAYS)
             entry.out_layout = _Layout(
                 [(tuple(t.shape), t.dtype) for t in out_leaves])
             entry.packed = entry.out_layout.pack(out_leaves)
@@ -214,18 +291,15 @@ def graphed(fn: Callable, device="cuda") -> Callable:
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
         entry.graph = graph
 
-    def signature(args, kwargs):
-        kwargs = {k: v for k, v in kwargs.items() if v is not None}
-        leaves: list = []
-        struct = _flatten((args, kwargs), leaves)
-        return (struct, tuple(_leaf_signature(a) for a in leaves)), leaves
+    name = getattr(fn, "__qualname__", repr(fn))
 
     def call(*args, **kwargs):
-        key, leaves = signature(args, kwargs)
+        key, leaves = _signature(args, kwargs)
         struct = key[0]
         with torch.cuda.device(dev):
             entry = graphs.get(key)
             if entry is None:
+                _check_capture_bound(graphs, key, name)
                 entry = _Entry(struct, leaves, dev)
                 entry.load(leaves)
                 capture(entry)
@@ -237,7 +311,7 @@ def graphed(fn: Callable, device="cuda") -> Callable:
 
     def entry_of(*args, **kwargs) -> Optional[_Entry]:
         """The captured entry of this call's signature, or None."""
-        return graphs.get(signature(args, kwargs)[0])
+        return graphs.get(_signature(args, kwargs)[0])
 
     call.graphs = graphs
     call.entry_of = entry_of

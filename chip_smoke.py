@@ -19,24 +19,33 @@ real-time planning path: each of those five solves as one CUDA graph per
 solve against its eager run (``graph_vs_eager``: results, host launches,
 kernels by name in a profiled replay, p50/p99 solve time), the 20-tick
 receding-horizon loop as one graph (``closed_loop``) and the legged planning
-node in the lock-step dummy loop (``legged_node``). It prints one JSON
-object per line. The last line is
+node in the lock-step dummy loop (``legged_node``). Then the DDP planning
+node (``solver='ddp'``) in the same loop (``legged_ddp``), and the deployed
+topology (``launch``): ``cli.launch`` with its planner and plant in two
+processes over the shared-memory bus (soft cone with a live gait switch,
+pyramid cone), and this script as the tracking side against a spawned
+planner process, round trips timed, the trajectory held against the same
+loop in-process. It prints one JSON object per line. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
 Any failed phase raises, so the script exits non-zero and prints no result
-line; without a CUDA device it fails at once. Needs no network and starts no
-process besides ``nvidia-smi`` and the compiler, both of which it waits for.
+line; without a CUDA device it fails at once. Needs no network. Besides
+``nvidia-smi`` and the compilers it starts the launcher's and the planner's
+processes, each in a process group of its own that it waits for or kills.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -111,6 +120,25 @@ LOOP_TICKS = 20  # the on-device n-tick loop (build_centroidal_mpc_loop)
 # and the MPC replanning every fourth step (50 Hz).
 NODE_SPEED, NODE_TROT_CYCLE = 0.25, 0.7
 NODE_MRT_DT, NODE_RATIO, NODE_STEPS = 0.005, 4, 240
+# The DDP planning node (solver='ddp', five iterations per solve, the JAX
+# node's default) on the observations of that loop. Its forces against the
+# f64 CPU DDP on the first solve's inputs: measured 6.8e-5 N on an H100,
+# bound 1e-3 N.
+TOL_DDP_F64 = 1e-3
+# The profiler ranges of one DDP iteration (solvers/ddp.py).
+DDP_RANGES = ("ddp.linearize", "ddp.hessian", "ddp.riccati",
+              "ddp.line_search")
+# The deployed topology (cli/launch.py) with the stand-in .info files of
+# tests/torch_port_util.py: planner and plant in two processes, 1.2 s at
+# the launcher's 15 ms plant step and two plant steps per solve. With these
+# stand-in weights the trotting body sinks, in this loop as in the JAX
+# package's (a CPU check by hand): measured 0.093 m soft and 0.090 m pyramid
+# on an H100. The bound holds the run to that behaviour; it is no
+# tracking-quality target.
+LAUNCH_SECONDS, LAUNCH_SWITCH = 1.2, "standing_trot@0.6"
+LAUNCH_DRIFT_M = 0.10
+LAUNCH_OBS = 60  # observations the script sends the spawned planner
+LAUNCH_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -445,12 +473,432 @@ def wall_spread(fn, n: int = GRAPH_SOLVES, warmup: int = 3) -> dict:
         t0 = time.perf_counter()
         fn()
         ts.append(1e3 * (time.perf_counter() - t0))
-    ts.sort()
+    return percentiles(ts)
+
+
+def percentiles(ms) -> dict:
+    """p50 / p99 / max of a list of milliseconds."""
+    ts = sorted(ms)
+    n = len(ts)
 
     def pct(p):
         return ts[min(n - 1, int(round(p / 100.0 * (n - 1))))]
 
     return {"p50": pct(50), "p99": pct(99), "max": ts[-1], "n": n}
+
+
+def stage_split(call) -> dict:
+    """One eager ``call()`` of the DDP solver under ``torch.profiler``: the
+    device time of all its kernels and of those launched inside each stage
+    range of solvers/ddp.py (``DDP_RANGES``). The profiler ties each kernel
+    to the one operator that launched it; an operator counts for the range
+    its start lies in. (A range's own device time is the span of its
+    kernels on the device timeline, idle gaps included, so it is not
+    used.) A replay runs the same kernels, so the shares are the
+    replay's; the ranges exist only where the host runs the solver's
+    Python."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = prof.events()
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and e.name not in DDP_RANGES) / 1e3
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == DeviceType.CPU and e.name in DDP_RANGES]
+    range_ms = dict.fromkeys(DDP_RANGES + ("outside",), 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name in DDP_RANGES:
+            continue
+        us = sum(k.duration for k in e.kernels if k.name not in DDP_RANGES)
+        if us:
+            start = e.time_range.start
+            name = next((n for a, b, n in spans if a <= start <= b),
+                        "outside")
+            range_ms[name] += us / 1e3
+    return {"device_ms": total, "range_ms": range_ms,
+            "attributed_ms": sum(range_ms.values()),
+            "share": {k: v / total if total else None
+                      for k, v in range_ms.items()}}
+
+
+def node_gait():
+    """The planning-node scenario's gait: stance, then the trot from 0.2 s
+    after 0.1 s of transition."""
+    from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule, trot_template
+    gait = GaitSchedule.stance(trot_template(NODE_TROT_CYCLE), t0=0.0)
+    gait.phase_transition_stance_time = 0.1
+    gait.insert_template(trot_template(NODE_TROT_CYCLE), insert_time=0.2)
+    return gait
+
+
+def phase_legged_ddp(dev, card, lcfg, sqp_observations) -> dict:
+    """The legged planning node with the DDP solver (``solver='ddp'``) at
+    the legged node's width, in two runs.
+
+    (i) The 60 observations of the soft-cone SQP node's lock-step loop
+    (phase ``legged_node``), each answered by the DDP node: graphed
+    against eager, host launches per solve, forces against the f64 CPU
+    DDP, the force checks at every solve, the solve times, and the time
+    split by stage. (ii) The DDP node closing the loop itself, as phase
+    ``legged_node`` runs it. Its first iterate is the open-loop rollout of
+    the weight-compensating input, as in the JAX package; over a 1 s
+    horizon that rollout tumbles from any state off the symmetric stance,
+    and the loop diverges in both packages. Run (ii) is reported, and
+    gated only on its first solve, which starts from that stance."""
+    from cheeta_mpc_tpu_torch.models.srbd_legged import srbd_step
+    from cheeta_mpc_tpu_torch.mpc.legged_ddp import build_legged_ddp_solver
+    from cheeta_mpc_tpu_torch.mpc.legged_node import (LeggedPlannerAssembly,
+                                                      PlannerSettings,
+                                                      default_stance_state)
+    from cheeta_mpc_tpu_torch.mpc.runtime import (MpcMrtInterface,
+                                                  SystemObservation,
+                                                  run_dummy_loop)
+    from cheeta_mpc_tpu_torch.solvers.ddp import DdpSettings
+    from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
+    settings = PlannerSettings(solver="ddp")
+    x0 = default_stance_state(lcfg)
+
+    node = LeggedPlannerAssembly(
+        lcfg, node_gait(), x0, v_cmd=np.array([NODE_SPEED, 0.0, 0.0]),
+        settings=settings, device=dev)
+    graph_fn = node._solve
+    calls = []
+
+    def recording(*args, **kwargs):
+        sol = graph_fn(*args, **kwargs)
+        calls.append((args, kwargs, sol))
+        return sol
+
+    node._solve = recording
+
+    def check_solve(args, sol, what):
+        for name in ("forces", "x_traj", "u_traj", "gains_K", "gains_P",
+                     "gains_p", "cost"):
+            check(bool(torch.isfinite(getattr(sol, name)).all()),
+                  f"{what}: {name} is not finite")
+        en = torch.as_tensor(args[2], device=dev)
+        check(bool((sol.forces[en == 0] == 0).all()),
+              f"{what}: swing-leg forces are not exactly 0")
+        fz = sol.forces[..., 2].sum(dim=-1)
+        lo, hi = float(fz.min()), float(fz.max())
+        check(0.5 * LEGGED_MG <= lo and hi <= 1.5 * LEGGED_MG,
+              f"{what}: total Fz in [{lo}, {hi}] N leaves m g = "
+              f"{LEGGED_MG} N by more than 50 %")
+        return lo, hi
+
+    # (i) The SQP node's observations.
+    for t, x in sqp_observations:
+        node.solve_fn(SystemObservation(time=t, state=x))
+    check(len(graph_fn.graphs) == 1,
+          f"DDP node: {len(graph_fn.graphs)} graphs captured; expected one")
+    n_solves = len(calls)
+    fz_range = [np.inf, -np.inf]
+    for i, (a, _, sol) in enumerate(calls):
+        lo, hi = check_solve(a, sol, f"DDP node, solve {i}")
+        fz_range = [min(fz_range[0], lo), max(fz_range[1], hi)]
+    # The first graphed solve (warm-up calls, capture, replay) against an
+    # eager solve of the same inputs: the same kernels in the same order,
+    # none of them summing in a run-dependent order.
+    args, kwargs, first = calls[0]
+    eager = graph_fn.__wrapped__(*args, **kwargs)
+    torch.cuda.synchronize()
+    diff = {k: max_abs(getattr(first, k), getattr(eager, k))
+            for k in first._fields}
+    bit_equal = all(torch.equal(getattr(first, k), getattr(eager, k))
+                    for k in first._fields)
+    check(bit_equal, f"DDP node: graphed and eager solves differ: {diff}")
+    ref64 = build_legged_ddp_solver(
+        lcfg._replace(dtype=torch.float64),
+        DdpSettings(iterations=settings.ddp_iterations), device="cpu")(
+        *(np.asarray(a, np.float64) for a in args),
+        dts=np.asarray(kwargs["dts"], np.float64))
+    f64_err = max_abs(first.forces.cpu(), ref64.forces)
+    check(f64_err <= TOL_DDP_F64,
+          f"DDP node: forces differ from the f64 CPU DDP by {f64_err} N")
+    t_last, x_last = sqp_observations[-1]
+    tr, _ = trace_counts(lambda: node.solve_fn(
+        SystemObservation(time=t_last, state=x_last)))
+    check(tr["host_kernel_launches"] == 0 and tr["graph_launches"] == 1,
+          f"DDP node: a solve made {tr['host_kernel_launches']} kernel "
+          f"launches and {tr['graph_launches']} graph launches on the "
+          "host; expected 0 and 1")
+    split = stage_split(lambda: graph_fn.__wrapped__(*args, **kwargs))
+    steady = Benchmarker()
+    steady.samples_ms = node.bench.samples_ms[1:n_solves]
+    costs = [float(sol.cost) for _, _, sol in calls[:n_solves]]
+    report = {
+        "phase": "legged_ddp", "card": card, "horizon": lcfg.horizon,
+        "ddp_iterations": settings.ddp_iterations,
+        "graph": graph_fn.entry_of(*args, **kwargs).stats,
+        "sqp_observations": {
+            "solves": n_solves,
+            "first_solve_ms": node.bench.samples_ms[0],
+            "solve_ms_p50": steady.percentile_ms(50),
+            "solve_ms_p99": steady.percentile_ms(99),
+            "solve_ms_max": max(steady.samples_ms),
+            "p50_within_20ms": steady.percentile_ms(50) <= BUDGET_MS,
+            "graphed_vs_eager_max_abs": diff, "bit_equal": bit_equal,
+            "force_err_vs_f64_cpu": f64_err, "tolerance": TOL_DDP_F64,
+            "total_fz_min_max": fz_range, "mg": LEGGED_MG,
+            "cost_first_median_max": [costs[0], statistics.median(costs),
+                                      max(costs)],
+            "converged": sum(bool(sol.converged)
+                             for _, _, sol in calls[:n_solves])},
+        "replay": {k: tr[k] for k in ("host_kernel_launches",
+                                      "graph_launches", "host_copies",
+                                      "device_ops", "device_ms")},
+        "eager_stage_split": split}
+
+    # (ii) The DDP node closing the loop: the same node (a DDP solve
+    # carries no state from one to the next), a fresh gait for the plant.
+    gait = node_gait()
+    calls.clear()
+
+    def plant(t, x, u):
+        e = gait.get_mode_schedule(max(0.0, t - 1.0), t + 1.0)\
+            .contact_flags_at(t + 0.5 * NODE_MRT_DT)
+        return srbd_step(lcfg.params, torch.as_tensor(x), torch.as_tensor(u),
+                         torch.as_tensor(np.asarray(e, np.float64)),
+                         dt=NODE_MRT_DT).numpy()
+
+    res = run_dummy_loop(MpcMrtInterface(node.solve_fn), plant, x0=x0,
+                         mrt_dt=NODE_MRT_DT, mpc_update_ratio=NODE_RATIO,
+                         n_steps=NODE_STEPS)
+    check_solve(calls[0][0], calls[0][2], "DDP node, closed loop, solve 0")
+    costs = [float(sol.cost) for _, _, sol in calls]
+    finite = np.isfinite(res.states).all(axis=1)
+    report["closed_loop"] = {
+        "solves": res.solves,
+        "costs": [c if np.isfinite(c) else None for c in costs],
+        "first_solve_over_10x_first_cost": next(
+            (i for i, c in enumerate(costs)
+             if not abs(c) <= 10.0 * abs(costs[0])), None),
+        "first_nonfinite_step": (None if finite.all()
+                                 else int(np.argmin(finite))),
+        "steps": NODE_STEPS, "mrt_dt": NODE_MRT_DT,
+        "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO)}
+    return report
+
+
+def run_child(cmd, env, cwd, timeout_s=LAUNCH_TIMEOUT_S):
+    """Run ``cmd`` in a process group of its own to its end; the group is
+    killed if it outlives ``timeout_s`` (or anything goes wrong here).
+    Returns (returncode, stdout, stderr)."""
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+        return proc.returncode, out, err
+    finally:
+        stop_group(proc)
+
+
+def stop_group(proc, grace_s: float = 30.0) -> None:
+    """SIGTERM to ``proc``'s process group, SIGKILL after ``grace_s``."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)  # stragglers of the group
+    except ProcessLookupError:
+        pass
+    proc.wait(timeout=grace_s)
+
+
+def solves_line(stdout: str, what: str) -> dict:
+    """The ``[mpc] solves`` line an MPC process prints at shutdown."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("[mpc] solves ")]
+    check(len(lines) == 1, f"{what}: the MPC process printed "
+          f"{len(lines)} '[mpc] solves' lines")
+    return json.loads(lines[0][len("[mpc] solves "):])
+
+
+def drive_mrt(mrt, cfg, gait, dev) -> dict:
+    """The tracking side of the deployed loop, played by this script:
+    reset handshake, then ``LAUNCH_OBS`` observations, each published once
+    and answered by the planner before the plant (the port's SRBD step on
+    the card, as the launcher's plant process runs it) takes two steps on
+    its policy. Returns the plant's states and each observation's round
+    trip, observation published -> its policy received."""
+    from cheeta_mpc_tpu_torch.cli.launch import wait_for_policy_at
+    from cheeta_mpc_tpu_torch.models.srbd_legged import srbd_step
+    from cheeta_mpc_tpu_torch.mpc.legged_node import default_stance_state
+    from cheeta_mpc_tpu_torch.mpc.runtime import SystemObservation
+    DT = float(cfg.params.dt)
+    kw = dict(dtype=cfg.dtype, device=dev)
+
+    def plant(t, x, u):
+        e = np.asarray(gait.get_mode_schedule(
+            max(0.0, t - 1.0), t + 1.0).contact_flags_at(t + 0.5 * DT))
+        return srbd_step(cfg.params, torch.as_tensor(x, **kw),
+                         torch.as_tensor(u, **kw),
+                         torch.as_tensor(e, **kw)).cpu().numpy().astype(
+                             np.float64)
+
+    check(mrt.reset_mpc(timeout_s=120.0), "launch: no reset acknowledgement")
+    x = default_stance_state(cfg)
+    t, states, rtt = 0.0, [x.copy()], []
+    for k in range(LAUNCH_OBS):
+        t_pub = time.perf_counter()
+        mrt.set_current_observation(
+            SystemObservation(time=t, state=x, input=None, mode=0))
+        check(wait_for_policy_at(mrt, t, 300.0 if k == 0 else 30.0),
+              f"launch: no policy for the observation at t = {t}")
+        rtt.append(1e3 * (time.perf_counter() - t_pub))
+        for _ in range(2):
+            x = plant(t, x, mrt.evaluate_policy(t, x))
+            t += DT
+            states.append(x.copy())
+    return {"states": np.asarray(states), "rtt_ms": rtt}
+
+
+def phase_launch(dev, card) -> dict:
+    """The deployed topology on the card. (a) ``cli.launch`` as a user runs
+    it (planner and plant in two processes over shared memory), soft cone
+    with a live gait switch and pyramid cone. (b) This script as the
+    tracking side against a spawned planner process (``--role mpc``),
+    timed per round trip, and against the same loop over the in-process
+    bus with the same planner in this process."""
+    from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import LeggedMpcConfig
+    from cheeta_mpc_tpu_torch.mpc.legged_node import (LeggedPlannerAssembly,
+                                                      default_stance_state)
+    from cheeta_mpc_tpu_torch.transport.bus import MessageBus
+    from cheeta_mpc_tpu_torch.transport.mpc_mrt import (TOPICS, MpcNode,
+                                                        MrtNode)
+    from cheeta_mpc_tpu_torch.transport.shm import ShmMessageBus
+    from cheeta_mpc_tpu_torch.utils.info_config import load_gait_library
+    root = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_util", root / "tests" / "torch_port_util.py")
+    util = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(util)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    launch = [sys.executable, "-m", "cheeta_mpc_tpu_torch.cli.launch",
+              "--device", dev.type, "--horizon", str(LEGGED_HORIZON)]
+    report = {"phase": "launch", "card": card, "horizon": LEGGED_HORIZON}
+    with tempfile.TemporaryDirectory() as tmp:
+        task, gait_info = util.write_info_files(tmp)
+        files = ["--task-info", task, "--gait-info", gait_info]
+        cfg = LeggedMpcConfig.from_task_info(task, horizon=LEGGED_HORIZON)
+        x0 = default_stance_state(cfg)
+        n_steps = int(round(LAUNCH_SECONDS / cfg.params.dt))
+        want_solves = 1 + (n_steps - 1) // 2  # the launcher's ratio of 2
+
+        # (a) The launcher, as a user runs it.
+        for mode, extra in (("soft", ["--switch-gait", LAUNCH_SWITCH]),
+                            ("pyramid", [])):
+            out = os.path.join(tmp, f"launch_{mode}")
+            t0 = time.perf_counter()
+            rc, stdout, stderr = run_child(
+                launch + files + ["--cone", mode, "--seconds",
+                                  str(LAUNCH_SECONDS), "--out", out] + extra,
+                env, str(root))
+            wall = time.perf_counter() - t0
+            what = f"launch ({mode})"
+            check(rc == 0, f"{what}: exit code {rc}\n{stdout[-3000:]}\n"
+                  f"{stderr[-3000:]}")
+            with open(out + "_summary.json") as f:
+                summary = json.load(f)
+            states = np.load(out + "_traj.npz")["states"]
+            check(summary["finite"] and bool(np.isfinite(states).all()),
+                  f"{what}: non-finite states")
+            check(summary["solves"] == want_solves,
+                  f"{what}: {summary['solves']} policies applied; the "
+                  f"lock-step count is {want_solves}")
+            check(summary["height_drift_m"] < LAUNCH_DRIFT_M,
+                  f"{what}: height drift {summary['height_drift_m']} m")
+            check(summary["forward_m"] > 0.0,
+                  f"{what}: no forward progress ({summary['forward_m']} m)")
+            if mode == "soft":
+                check(summary["switched_at"] is not None,
+                      f"{what}: the live gait command was not applied")
+            up = f"[mpc] node up (sqp, {mode} cone, N={LEGGED_HORIZON}, " \
+                 f"device {dev.type}"
+            check(up in stdout, f"{what}: no line {up!r} in the output")
+            node = solves_line(stdout, what)
+            report[f"cli_{mode}"] = {
+                "wall_s": wall, "summary": summary,
+                "mpc_first_solve_ms": node["first_ms"],
+                "mpc_solve_ms": percentiles(node["solve_ms"])}
+
+        # (b) This script as the tracking side, across the process boundary
+        # and then in-process, the same planner (the launcher's default
+        # settings, soft cone) and the same plant.
+        library = load_gait_library(gait_info)
+
+        def gait():
+            gs = GaitSchedule.stance(library["trot"], t0=0.0)
+            gs.phase_transition_stance_time = 0.1
+            gs.insert_template(library["trot"], insert_time=0.2)
+            return gs
+
+        name = f"/cheeta_smoke_{os.getpid()}"
+        bus = ShmMessageBus(TOPICS, name, create=True)
+        proc = subprocess.Popen(
+            launch + files + ["--role", "mpc", "--bus", name, "--cone",
+                              "soft"],
+            env=env, cwd=str(root), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            shm_run = drive_mrt(MrtNode(bus), cfg, gait(), dev)
+            stop_group(proc)
+            stdout, stderr = proc.communicate(timeout=60)
+        finally:
+            stop_group(proc)
+            bus.close()
+        check(proc.returncode == 0, f"launch (mpc process): exit code "
+              f"{proc.returncode}\n{stderr[-3000:]}")
+        node = solves_line(stdout, "launch (mpc process)")
+        check(node["solves"] == LAUNCH_OBS,
+              f"launch (mpc process): {node['solves']} solves for "
+              f"{LAUNCH_OBS} observations")
+        assembly = LeggedPlannerAssembly(
+            cfg, gait(), x0, v_cmd=np.array([NODE_SPEED, 0.0, 0.0]),
+            device=dev)
+        ibus = MessageBus(TOPICS)
+        mpc = MpcNode(ibus, assembly.solve_fn)
+        mpc.launch()
+        try:
+            in_run = drive_mrt(MrtNode(ibus), cfg, gait(), dev)
+        finally:
+            mpc.shutdown()
+            ibus.close()
+        a, b = shm_run["states"], in_run["states"]
+        scale = max(1.0, float(np.abs(b).max()))
+        traj_err = float(np.abs(a - b).max())
+        check(a.shape == b.shape and traj_err <= 1e-5 * scale,
+              f"launch: the trajectory across processes differs from the "
+              f"in-process one by {traj_err} (scale {scale})")
+        rtt = shm_run["rtt_ms"][1:]  # the first includes the capture
+        solve = node["solve_ms"]  # solves after the first, one per tick
+        check(len(solve) == len(rtt), "launch: round trips and solves do "
+              "not pair up")
+        report["mrt_vs_spawned_planner"] = {
+            "observations": LAUNCH_OBS,
+            "first_round_trip_ms": shm_run["rtt_ms"][0],
+            "round_trip_ms": percentiles(rtt),
+            "node_solve_ms": percentiles(solve),
+            "round_trip_minus_solve_ms": percentiles(
+                [r - s for r, s in zip(rtt, solve)]),
+            "in_process_round_trip_ms": percentiles(in_run["rtt_ms"][1:]),
+            "in_process_solve_ms": percentiles(assembly.bench.samples_ms[1:]),
+            "trajectory_bit_equal": bool(np.array_equal(a, b)),
+            "trajectory_max_abs": traj_err,
+            "height_drift_m": float(np.abs(a[:, 8] - x0[8]).max()),
+            "forward_m": float(a[-1, 6] - x0[6])}
+    return report
 
 
 def main() -> int:
@@ -1200,6 +1648,9 @@ def main() -> int:
               f"{want} in one and none")
         steady = Benchmarker()
         steady.samples_ms = node.bench.samples_ms[1:]  # after the capture
+        if mode == "soft":  # the observations phase legged_ddp answers
+            sqp_observations = list(zip(res.times[:-1:NODE_RATIO],
+                                        res.states[:-1:NODE_RATIO]))
         node_report[mode] = {
             "solves": res.solves, "first_solve_ms": node.bench.samples_ms[0],
             "solve_ms_p50": steady.percentile_ms(50),
@@ -1219,6 +1670,12 @@ def main() -> int:
           "speed": NODE_SPEED, "mrt_dt": NODE_MRT_DT,
           "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO),
           "seconds_simulated": NODE_MRT_DT * NODE_STEPS, **node_report})
+
+    # Phase 16: the DDP planning node. Phase 17: the deployed two-process
+    # topology with the SQP node on the card (K3 with the soft cone, K1
+    # with the pyramid cone, in the planner's own process).
+    emit(phase_legged_ddp(dev, card, lcfg, sqp_observations))
+    emit(phase_launch(dev, card))
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

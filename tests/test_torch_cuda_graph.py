@@ -1,11 +1,13 @@
 """PyTorch port: the host side of utils/cuda_graph.py, which holds no CUDA
 call: the call signature a graph is keyed on, the packing of a result nest
-into one buffer per dtype and back, and the staging of host inputs.
+into one buffer per dtype and back, the staging of host inputs (Python
+floats included) and the bound on captures per callable.
 The capture and replay themselves need a card: ``chip_smoke.py`` phases
 ``graph_vs_eager``, ``closed_loop`` and ``legged_node`` hold every graphed
 path against its eager run there."""
 
 import numpy as np
+import pytest
 import torch
 
 from cheeta_mpc_tpu_torch.core.types import PerformanceIndex
@@ -72,6 +74,11 @@ def test_signature_keys_on_shapes_dtypes_and_given_keywords():
     assert key(a, warm=(a, a)) != key(a)
     assert key(a, dts=a) != key(a, warm=a)
     assert key(a, 2) != key(a, 3)
+    # A Python float is staged as a 0-d input, as jax.jit traces it: its
+    # value is not part of the signature (a float that changes per call
+    # must not capture a graph per call), its type is.
+    assert key(a, 2.0) == key(a, 3.0)
+    assert key(a, 2.0) != key(a, 2)
     hash(key(a, warm=(a, b), dts=a))
 
 
@@ -94,3 +101,58 @@ def test_host_inputs_stage_into_one_buffer_per_dtype():
         assert torch.equal(view, torch.as_tensor(np.asarray(src)))
     assert torch.equal(buffers[torch.float64][:24],
                        torch.as_tensor(base.T.reshape(-1)))
+
+
+def test_python_floats_share_a_signature_and_each_call_uses_its_value():
+    """Two calls that differ only in a float have one signature; staged
+    through the same static input, each computes with its own value."""
+    def fn(x, scale, n):
+        return x * scale + n
+
+    x = np.arange(3.0)
+    key1, leaves1 = cg._signature((x, 0.5, 2), {})
+    key2, leaves2 = cg._signature((x, 4.0, 2), {})
+    assert key1 == key2
+    struct = key1[0]
+    layout = cg._Layout(list(key1[1]))
+    static = layout.views(layout.buffers())
+    assert static[1].shape == () and static[1].dtype == torch.float64
+    for leaves, scale in ((leaves1, 0.5), (leaves2, 4.0)):
+        for src, dst in zip(leaves, static):
+            dst.copy_(cg._host_tensor(src))
+        args, kwargs = cg._unflatten(struct, static)
+        assert args[2] == 2 and kwargs == {}  # the int stays a value
+        out = fn(*args, **kwargs)
+        assert torch.equal(out, torch.as_tensor(x * scale + 2))
+    # np.float64 is a float and is staged too; a bool or None is not.
+    sig = cg._signature
+    assert sig((x, np.float64(1.5), 2), {})[0] == key1
+    assert sig((x, True), {})[0] != sig((x, False), {})[0]
+
+
+def test_captures_are_bounded_and_the_error_names_what_changes():
+    """Past MAX_CAPTURES signatures a graphed callable raises, naming the
+    argument whose value keeps changing, instead of capturing one graph
+    (and one private memory pool) per call."""
+    x = np.zeros((3, 2))
+    graphs = {}
+    for n in range(cg.MAX_CAPTURES):
+        key = cg._signature((x, n), {"warm": (x, x)})[0]
+        cg._check_capture_bound(graphs, key, "solve")
+        graphs[key] = None
+    with pytest.raises(cg.RecaptureError,
+                       match=r"solve: .*bound of 16 .*args\[1\]: value 15 "
+                             r"-> value 99"):
+        cg._check_capture_bound(
+            graphs, cg._signature((x, 99), {"warm": (x, x)})[0], "solve")
+    with pytest.raises(cg.RecaptureError,
+                       match=r"kwargs\['warm'\]\[1\]: array of shape "
+                             r"\(3, 2\), torch.float64 -> array of shape "
+                             r"\(4, 2\)"):
+        cg._check_capture_bound(
+            graphs,
+            cg._signature((x, 15), {"warm": (x, np.zeros((4, 2)))})[0],
+            "solve")
+    # A signature already captured is never looked at here; a float that
+    # changes does not make new signatures at all.
+    assert len({cg._signature((x, 0.1 * n), {})[0] for n in range(50)}) == 1

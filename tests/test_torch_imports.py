@@ -59,6 +59,17 @@ def test_no_jax_import(path):
         assert f"__import__('{name}" not in text
 
 
+@pytest.mark.parametrize("sub", ["transport", "viz", "cli", "native"])
+def test_runtime_edges_are_held_to_the_same_rule(sub):
+    """The deployed runtime's subpackages are among the files checked
+    above, and their C++ sources name nothing of the JAX package."""
+    files = [p for p in PORT_FILES if p.parent.name == sub]
+    assert files and PORT / sub / "__init__.py" in files
+    for cpp in (PORT / sub).glob("*.cpp"):
+        text = cpp.read_text()
+        assert "jax" not in text.lower() and "cheeta_mpc_tpu." not in text
+
+
 def test_every_module_imports_without_a_compiler_or_a_card():
     """Importing builds nothing and needs neither nvcc nor triton."""
     assert len(PORT_FILES) > 15
@@ -67,6 +78,7 @@ def test_every_module_imports_without_a_compiler_or_a_card():
         name = ".".join(rel.parts).removesuffix(".__init__")
         importlib.import_module(name)
     assert build._lib is None  # nothing was built or loaded by importing
+    assert not build._buses  # nor the transport's buses
     assert cheeta_mpc_tpu_torch.__version__
 
 
@@ -113,6 +125,36 @@ def test_real_time_path_defaults_to_the_card_and_raises_without_one():
         LeggedPlannerAssembly(lcfg, GaitSchedule.stance(trot_template()),
                               examples.default_stance_state(lcfg),
                               np.zeros(3))
+
+
+def test_runtime_edges_default_to_the_card_and_raise_without_one(tmp_path):
+    """The DDP solver, the DDP node and the command-line nodes take the card
+    by default and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for one without")
+    from cheeta_mpc_tpu_torch.cli import launch, legged_demo
+    from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule, trot_template
+    from cheeta_mpc_tpu_torch.mpc.legged_ddp import build_legged_ddp_solver
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import LeggedMpcConfig
+    from cheeta_mpc_tpu_torch.mpc.legged_node import (LeggedPlannerAssembly,
+                                                      PlannerSettings)
+    from tests.torch_port_util import write_info_files
+
+    lcfg = LeggedMpcConfig(horizon=4, **examples.LEGGED_TEST_WEIGHTS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_legged_ddp_solver(lcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeggedPlannerAssembly(lcfg, GaitSchedule.stance(trot_template()),
+                              examples.default_stance_state(lcfg),
+                              np.zeros(3),
+                              settings=PlannerSettings(solver="ddp"))
+    task, gait = write_info_files(tmp_path)
+    files = ["--task-info", task, "--gait-info", gait, "--horizon", "4"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        legged_demo.main(files + ["--out", str(tmp_path / "demo")])
+    for role in ("mpc", "dummy"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch.main(files + ["--role", role, "--bus", "/unused"])
 
 
 def test_converters_default_to_the_card_and_raise_without_one():

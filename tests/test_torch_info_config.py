@@ -5,7 +5,8 @@ against the JAX package's on the same files.
 The reference's own task.info and gait.info are not in the repository, so
 the test writes files of their shape with stand-in numbers (every section
 the loaders read, comments of both kinds, a matrix with ``scaling``, braces
-on their own lines and on the key's line). Tolerance 0: parsing is host
+on their own lines and on the key's line; ``tests/torch_port_util.py``
+holds the text). Tolerance 0: parsing is host
 code and the configurations are made of Python floats.
 """
 
@@ -20,118 +21,13 @@ from cheeta_mpc_tpu.utils import info_config as jic
 from cheeta_mpc_tpu_torch.mpc import legged_mpc as tl
 from cheeta_mpc_tpu_torch.mpc import runtime as trt
 from cheeta_mpc_tpu_torch.utils import info_config as tic
-
-
-def _diag_block(values, scaling=None):
-    lines = [] if scaling is None else [f"  scaling {scaling}"]
-    lines += [f"  ({i},{i})  {v}   ; entry {i}" for i, v in enumerate(values)]
-    return "\n".join(lines)
-
-
-Q_DIAG = [15.0, 15.0, 30.0, 5.0, 10.0, 10.0, 500.0, 500.0, 500.0, 100.0,
-          200.0, 200.0] + [20.0] * 12
-R_DIAG = [1.0] * 12 + [20.0] * 12
-
-TASK_INFO = f"""; stand-in task.info (same sections as the reference's)
-centroidalModelType             1      // SRBD
-
-multiple_shooting
-{{
-  nThreads                      3
-  dt                            0.015
-  sqpIteration                  1
-  integratorType                RK2
-  deltaTol                      1e-4
-}}
-
-mpc
-{{
-  timeHorizon                   1.0  ; [s]
-  solutionTimeWindow            -1
-  coldStart                     false
-  debugPrint                    true
-  mpcDesiredFrequency           50   ; [Hz]
-  mrtDesiredFrequency           400  ; [Hz]
-}}
-
-initialState
-{{
-  (0,0)  0.0
-  (8,0)  0.575
-  (23,0) -0.8
-}}
-
-Q
-{{
-{_diag_block(Q_DIAG)}
-}}
-
-R {{
-{_diag_block([v / 2.0 for v in R_DIAG], scaling=2.0)}
-  (0,3) 0.25
-}}
-
-frictionConeSoftConstraint
-{{
-  frictionCoefficient    0.7
-  mu                     0.2
-  delta                  4.0
-}}
-
-model_settings
-{{
-  positionErrorGain      15.0
-  verboseCppAd           true
-}}
-"""
-
-GAIT_INFO = """list
-{
-  [0] stance
-  [1] trot
-  [2] standing_trot
-}
-stance
-{
-  modeSequence
-  {
-    [0] STANCE
-  }
-  switchingTimes
-  {
-    [0] 0.0
-    [1] 0.5
-  }
-}
-trot
-{
-  modeSequence
-  {
-    [0]  LF_RH
-    [1]  RF_LH
-  }
-  switchingTimes
-  {
-    [0]  0.0
-    [1]  0.35
-    [2]  0.70
-  }
-}
-standing_trot
-{
-  modeSequence { [0] LF_RH  [1] STANCE  [2] RF_LH  [3] STANCE }
-  switchingTimes { [0] 0.00 [1] 0.25 [2] 0.3 [3] 0.55 [4] 0.6 }
-}
-"""
+from tests.torch_port_util import (GAIT_INFO, Q_DIAG, R_DIAG, TASK_INFO,
+                                   write_info_files)
 
 
 @pytest.fixture()
 def files(tmp_path):
-    task = tmp_path / "task.info"
-    gait = tmp_path / "gait.info"
-    task.write_text(TASK_INFO)
-    gait.write_text(GAIT_INFO)
-    return str(task), str(gait)
+    return write_info_files(tmp_path)
 
 
 def _same(a, b):

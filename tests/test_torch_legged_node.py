@@ -16,6 +16,8 @@ soft cone), never from task.info.
   port's kernel path, here its plain versions): every tick's contact forces
   within 2e-3 of the force scale, the JAX package's bound for that pair of
   f32 executors.
+- The DDP node (``solver='ddp'``), f64 on each package's own solver: the
+  same policies and metrics.
 """
 
 import functools
@@ -172,17 +174,58 @@ def test_f32_policies_match_jax_on_default_backends():
         assert err <= FORCE_BOUND * scale, (tick, err)
 
 
-def test_ddp_solver_is_not_ported_yet():
-    _, _, tcfg, _ = legged_configs(N, "soft")
-    gait = _gait(tsch)
+@functools.lru_cache(maxsize=None)
+def _ddp_run():
+    """Both packages' DDP nodes (five iterations, f64) on their own solvers,
+    driven by each package's loop for four MPC ticks with the port's
+    plant."""
+    jcfg, _, tcfg, _ = legged_configs(N, "soft")
     x0 = tnode.default_stance_state(tcfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tnode.LeggedPlannerAssembly(
-            tcfg, gait, x0, V_CMD,
-            settings=tnode.PlannerSettings(solver="ddp"), device="cpu")
+    out = {}
+    for name, mod, rt, sch, cfg in (("jax", jnode, jrt, jsch, jcfg),
+                                    ("torch", tnode, trt, tsch, tcfg)):
+        gait = _gait(sch)
+        kw = {} if name == "jax" else {"device": "cpu"}
+        node = mod.LeggedPlannerAssembly(
+            cfg, gait, x0, v_cmd=V_CMD,
+            settings=mod.PlannerSettings(solver="ddp"), **kw)
+        out[name] = (_drive(rt, node, tcfg, gait, x0), node)
+    return out
+
+
+def test_ddp_node_returns_the_policies_the_jax_node_does():
+    """solver='ddp' (the LeggedRobotDdpMpcNode role): the same policies,
+    value function included, and the same metrics as the JAX node. Both
+    run the same arithmetic in f64 (tests/test_torch_legged_ddp.py holds
+    the solvers to 1e-7 of scale); the closed loop feeds their states
+    back, so the bound is 1e-7 of each field's scale here too."""
+    run = _ddp_run()
+    (res_t, node_t), (res_j, node_j) = run["torch"], run["jax"]
+    assert res_t.solves == res_j.solves == 4
+    for name in ("states", "inputs"):
+        a, b = getattr(res_t, name), getattr(res_j, name)
+        scale = max(1.0, float(np.abs(b).max()))
+        assert np.abs(a - b).max() <= 1e-7 * scale, name
+    pt, pj = node_t._prev_policy, node_j._prev_policy
+    for name in ("times", "x_traj", "u_traj", "K", "P", "p"):
+        a, b = getattr(pt, name), getattr(pj, name)
+        assert a.dtype == b.dtype == np.float64 and a.shape == b.shape
+        scale = max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(a - b).max())
+        print(f"{name}: {err} at scale {scale}")
+        assert err <= 1e-7 * scale, (name, err)
+    mt, mj = dict(node_t.last_metrics), dict(node_j.last_metrics)
+    mt.pop("solve_ms"), mj.pop("solve_ms")
+    assert mt.keys() == mj.keys() == {"t", "cost", "converged"}
+    assert mt["t"] == mj["t"] and mt["converged"] == mj["converged"]
+    assert abs(mt["cost"] - mj["cost"]) <= 1e-7 * max(1.0, abs(mj["cost"]))
+
+
+def test_unknown_solver_raises():
+    _, _, tcfg, _ = legged_configs(N, "soft")
     with pytest.raises(ValueError, match="unknown solver"):
         tnode.LeggedPlannerAssembly(
-            tcfg, gait, x0, V_CMD,
+            tcfg, _gait(tsch), tnode.default_stance_state(tcfg), V_CMD,
             settings=tnode.PlannerSettings(solver="ilqr"), device="cpu")
 
 

@@ -1,16 +1,153 @@
 """JAX-side half of the exchange between the JAX package and its PyTorch
 port (the port-side half is ``cheeta_mpc_tpu_torch/convert.py``): pytrees of
-the JAX package -> nested dicts of numpy arrays, and comparison helpers.
-Only tests may import both packages, so this lives with the tests.
+the JAX package -> nested dicts of numpy arrays, and comparison helpers;
+and the stand-in ``.info`` files that the port's tests and ``chip_smoke.py``
+write. Only tests may import both packages, so this lives with the tests;
+it imports JAX only inside the functions that need it.
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import torch
 
 from cheeta_mpc_tpu_torch.convert import (qp_data_from_numpy,
                                           solution_to_numpy)
+
+
+# Stand-in task.info and gait.info: the reference's own files are not in the
+# repository, so tests (and chip_smoke.py, which loads this file by path)
+# write files of their shape with stand-in numbers: every section the
+# loaders read, comments of both kinds, a matrix with ``scaling``, braces on
+# their own lines and on the key's line. The Q/R diagonals are the port's
+# ``LEGGED_TEST_WEIGHTS``.
+
+def _diag_block(values, scaling=None):
+    lines = [] if scaling is None else [f"  scaling {scaling}"]
+    lines += [f"  ({i},{i})  {v}   ; entry {i}" for i, v in enumerate(values)]
+    return "\n".join(lines)
+
+
+Q_DIAG = [15.0, 15.0, 30.0, 5.0, 10.0, 10.0, 500.0, 500.0, 500.0, 100.0,
+          200.0, 200.0] + [20.0] * 12
+R_DIAG = [1.0] * 12 + [20.0] * 12
+
+TASK_INFO = f"""; stand-in task.info (same sections as the reference's)
+centroidalModelType             1      // SRBD
+
+multiple_shooting
+{{
+  nThreads                      3
+  dt                            0.015
+  sqpIteration                  1
+  integratorType                RK2
+  deltaTol                      1e-4
+}}
+
+mpc
+{{
+  timeHorizon                   1.0  ; [s]
+  solutionTimeWindow            -1
+  coldStart                     false
+  debugPrint                    true
+  mpcDesiredFrequency           50   ; [Hz]
+  mrtDesiredFrequency           400  ; [Hz]
+}}
+
+initialState
+{{
+  (0,0)  0.0
+  (8,0)  0.575
+  (23,0) -0.8
+}}
+
+Q
+{{
+{_diag_block(Q_DIAG)}
+}}
+
+R {{
+{_diag_block([v / 2.0 for v in R_DIAG], scaling=2.0)}
+  (0,3) 0.25
+}}
+
+frictionConeSoftConstraint
+{{
+  frictionCoefficient    0.7
+  mu                     0.2
+  delta                  4.0
+}}
+
+model_settings
+{{
+  positionErrorGain      15.0
+  verboseCppAd           true
+}}
+
+ddp
+{{
+  algorithm                       SLQ
+  maxNumIterations                1
+  minRelCost                      0.1
+  constraintPenaltyInitialValue   20.0
+  lineSearch
+  {{
+    minStepLength                 1e-2
+    maxStepLength                 1.0
+    hessianCorrectionMultiple     1e-5
+  }}
+}}
+"""
+
+GAIT_INFO = """list
+{
+  [0] stance
+  [1] trot
+  [2] standing_trot
+}
+stance
+{
+  modeSequence
+  {
+    [0] STANCE
+  }
+  switchingTimes
+  {
+    [0] 0.0
+    [1] 0.5
+  }
+}
+trot
+{
+  modeSequence
+  {
+    [0]  LF_RH
+    [1]  RF_LH
+  }
+  switchingTimes
+  {
+    [0]  0.0
+    [1]  0.35
+    [2]  0.70
+  }
+}
+standing_trot
+{
+  modeSequence { [0] LF_RH  [1] STANCE  [2] RF_LH  [3] STANCE }
+  switchingTimes { [0] 0.00 [1] 0.25 [2] 0.3 [3] 0.55 [4] 0.6 }
+}
+"""
+
+
+def write_info_files(directory) -> tuple:
+    """Write the stand-in ``task.info`` and ``gait.info`` into
+    ``directory``; returns their paths as strings."""
+    d = pathlib.Path(directory)
+    task, gait = d / "task.info", d / "gait.info"
+    task.write_text(TASK_INFO)
+    gait.write_text(GAIT_INFO)
+    return str(task), str(gait)
 
 
 def qp_data_to_numpy(data) -> dict:
