@@ -28,8 +28,8 @@ mid-run, exercising the full cross-process solver-synchronized path.
 ``--device`` (``cuda`` by default, ``cpu`` on request) is passed to every
 child process. The JAX package's processes share a persistent XLA compile
 cache; here each MPC process captures its graph at its first solve. At
-shutdown the MPC process prints its solve times as one ``[mpc] solves``
-JSON line.
+shutdown the MPC process prints its solve times and the gait commands its
+receiver applied, (name, time), as one ``[mpc] solves`` JSON line.
 
 Topic-name contract: every process constructs the bus with
 ``transport.mpc_mrt.TOPICS`` (like ROS topic names agreed by convention).
@@ -136,7 +136,8 @@ def run_mpc(args) -> int:
         ms = assembly.bench.samples_ms
         print("[mpc] solves " + json.dumps(
             {"solves": len(ms), "first_ms": ms[0] if ms else None,
-             "solve_ms": ms[1:]}), flush=True)
+             "solve_ms": ms[1:],
+             "gaits_applied": assembly.receiver.applied}), flush=True)
     return 0
 
 

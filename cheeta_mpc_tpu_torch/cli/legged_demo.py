@@ -8,10 +8,9 @@ plant == model, streams per-solve PerformanceIndex metrics as JSONL (the
 reference republishes PerformanceIndex for rqt_multiplot), and saves the
 trajectory + footholds + GRFs to an .npz for plotting.
 
-The MPC grid is event-aligned (solvers/discretization.discretize_fixed — the
-reference's timeDiscretizationWithEvents role), so gait switches land exactly
-on shooting nodes. The solver runs as one CUDA graph per call signature on
-the card (``utils/cuda_graph.graphed``); ``--device cpu`` runs it eagerly
+The planner is the planning node (``mpc/legged_node.LeggedPlannerAssembly``:
+event-aligned grid, swing references, warm start), whose solver runs as one
+CUDA graph per call signature on the card; ``--device cpu`` runs it eagerly
 on the CPU.
 
 Usage:
@@ -66,33 +65,25 @@ def main(argv=None):
     import torch
 
     from cheeta_mpc_tpu_torch.core.types import resolve_device
-    from cheeta_mpc_tpu_torch.examples import default_stance_state
     from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule
-    from cheeta_mpc_tpu_torch.gait.swing import (SwingConfig,
-                                                 SwingTrajectoryPlanner)
     from cheeta_mpc_tpu_torch.models.quadruped_kinematics import \
         foot_positions_world
     from cheeta_mpc_tpu_torch.models.srbd_legged import srbd_step
-    from cheeta_mpc_tpu_torch.mpc.legged_mpc import (
-        LeggedMpcConfig, build_legged_solver, make_velocity_command_reference)
-    from cheeta_mpc_tpu_torch.mpc.runtime import (MpcMrtInterface, PolicyData,
-                                                  SystemObservation,
-                                                  run_dummy_loop,
-                                                  shift_warm_start)
-    from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
-    from cheeta_mpc_tpu_torch.solvers.discretization import (
-        discretize_fixed, interval_contact_flags)
-    from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
-    from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import LeggedMpcConfig
+    from cheeta_mpc_tpu_torch.mpc.legged_node import (LeggedPlannerAssembly,
+                                                      PlannerSettings,
+                                                      default_stance_state)
+    from cheeta_mpc_tpu_torch.mpc.runtime import (MpcMrtInterface,
+                                                  run_dummy_loop)
+    from cheeta_mpc_tpu_torch.solvers.ddp import DdpSettings
     from cheeta_mpc_tpu_torch.utils.info_config import load_gait_library
-    from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
 
     dev = resolve_device(args.device)
     cfg = LeggedMpcConfig.from_task_info(args.task_info,
                                          horizon=args.horizon,
                                          cone_mode=args.cone,
                                          dtype=torch.float32)
-    N, DT = cfg.horizon, cfg.params.dt
+    DT = cfg.params.dt
     x0 = default_stance_state(cfg)
 
     library = load_gait_library(args.gait_info)
@@ -101,85 +92,36 @@ def main(argv=None):
     gs.phase_transition_stance_time = 0.1
     gs.insert_template(template, insert_time=0.2)
     ms = gs.get_mode_schedule(0.0, args.seconds + 2.0)
-    planner = SwingTrajectoryPlanner(SwingConfig(), num_feet=4)
-    planner.update(ms, terrain_height=0.0)
 
-    if args.solver == "sqp":
-        solve = graphed(build_legged_solver(
-            cfg, ScpSettings(iterations=2, ipm=IpmSettings(iters=10)),
-            device=dev), dev)
-    else:
-        from cheeta_mpc_tpu_torch.mpc.legged_ddp import \
-            build_legged_ddp_solver
-        from cheeta_mpc_tpu_torch.solvers.ddp import DdpSettings
-        # Configured from the task.info ddp block (reference
-        # LeggedRobotDdpMpcNode), with a deeper iteration budget than the
-        # file's RTI setting for the from-scratch demo.
-        ddp = DdpSettings.from_task_info(args.task_info, iterations=5)
-        solve = graphed(build_legged_ddp_solver(
-            cfg, ddp, eq_penalty=max(ddp.constraint_penalty, 100.0),
-            device=dev), dev)
-    bench = Benchmarker()
+    # The planning node: two SQP iterations of ten IPM iterations, or DDP
+    # configured from the task.info ddp block (reference
+    # LeggedRobotDdpMpcNode) with a deeper iteration budget than the file's
+    # RTI setting for the from-scratch demo. Its schedule window starts at 0
+    # for the whole run, as the schedule ``ms`` does.
+    ddp = (DdpSettings.from_task_info(args.task_info, iterations=5)
+           if args.solver == "ddp" else None)
+    node = LeggedPlannerAssembly(
+        cfg, gs, x0, v_cmd=np.array([args.vx, 0.0, 0.0]),
+        settings=PlannerSettings(solver=args.solver, ddp=ddp,
+                                 schedule_margin=args.seconds + 2.0),
+        device=dev)
+    bench = node.bench
     metrics_path = f"{args.out}_metrics.jsonl"
     metrics_f = open(metrics_path, "w")
-    v_cmd = np.array([args.vx, 0.0, 0.0])
-    prev_policy = [None]
 
-    def host(t):
-        return t.cpu().numpy().astype(np.float64)
-
-    def solve_fn(obs: SystemObservation) -> PolicyData:
-        t, x = obs.time, obs.state
-        x_ref = make_velocity_command_reference(cfg, x, v_cmd,
-                                                com_height=x0[8])
-        # Event-aligned shooting grid: gait switches land on nodes.
-        times = discretize_fixed(t, t + N * DT, N + 1, ms.event_times)
-        enable = interval_contact_flags(times, ms)
-        dts = np.diff(times)
-        mids = 0.5 * (times[:-1] + times[1:])
-        z_pos, z_vel = planner.sample_times(mids)  # (4, N) each
-        z_pos, z_vel = z_pos.T, z_vel.T
-        kw = {}
-        if args.solver == "sqp" and prev_policy[0] is not None:
-            # Reference warm start: previous primal interpolated onto the
-            # shifted grid (MultipleShootingSolver.cpp:229-265).
-            xw, uw = shift_warm_start(prev_policy[0], times)
-            kw["warm"] = (xw.astype(np.float32), uw.astype(np.float32))
-        f32 = np.float32
-        with bench.phase("mpc_solve"):
-            sol = solve(np.asarray(x, f32), x_ref.astype(f32),
-                        enable.astype(f32), z_pos.astype(f32),
-                        z_vel.astype(f32), dts=dts.astype(f32), **kw)
-            u_host = host(sol.u_traj)  # waits for the solve
-        bench.record_solve_ms(bench.phase("mpc_solve").latest_ms)
+    def solve_fn(obs):
+        policy = node.solve_fn(obs)
         # PerformanceIndex stream (MultiplotRemap analogue).
-        entry = {"t": round(t, 4),
-                 "solve_ms": round(bench.phase("mpc_solve").latest_ms, 3)}
-        if args.solver == "sqp":
-            perf = sol.performance
-            entry.update({
-                "merit": float(sol.merit), "qp_mu": float(sol.qp_mu),
-                "cost": float(perf.cost),
-                "dyn_sse": float(perf.dyn_violation_sse),
-                "eq_sse": float(perf.eq_constraint_sse),
-                "ineq_sse": float(perf.ineq_constraint_sse),
-                "convergence": int(sol.convergence)})
-            P, pv = host(sol.gains_P), host(sol.gains_p)
-        else:
-            entry.update({"cost": float(sol.cost)})
-            P = pv = None
-        metrics_f.write(json.dumps(entry) + "\n")
-        pol = PolicyData(times=times, x_traj=host(sol.x_traj),
-                         u_traj=u_host, K=host(sol.gains_K), P=P, p=pv)
-        prev_policy[0] = pol
-        return pol
+        metrics_f.write(json.dumps(node.last_metrics) + "\n")
+        return policy
 
     def plant_step(t, x, u):
         e = np.asarray(ms.contact_flags_at(t + 0.5 * DT))
-        return host(srbd_step(
+        return srbd_step(
             cfg.params, torch.as_tensor(np.asarray(x, np.float32), device=dev),
             torch.as_tensor(np.asarray(u, np.float32), device=dev),
-            torch.as_tensor(e.astype(np.float32), device=dev)))
+            torch.as_tensor(e.astype(np.float32), device=dev)
+        ).cpu().numpy().astype(np.float64)
 
     n_steps = int(round(args.seconds / DT))
     t_wall = time.perf_counter()

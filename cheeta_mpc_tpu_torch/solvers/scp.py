@@ -93,39 +93,22 @@ def matmul_precision(precision: str):
     """Run the body at one f32 matmul precision and give the caller's back
     on exit, errors included — the counterpart of
     ``jax.default_matmul_precision``. A capture of the body (a CUDA graph)
-    records the cuBLAS algorithms picked under this precision.
-
-    The caller's setting is saved as it was made: through the legacy flags
-    (``torch.backends.cuda.matmul.allow_tf32``,
-    ``torch.set_float32_matmul_precision``), or, where torch refuses to
-    read those because the caller used the per-backend ``fp32_precision``
-    settings, through those; the body's setting is made the same way, as
-    torch asks that the two not be mixed."""
+    records the cuBLAS algorithms picked under this precision. The
+    caller's ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.get_float32_matmul_precision()`` are what is saved."""
     if precision not in MATMUL_PRECISIONS:
         raise ValueError(f"unknown matmul_precision {precision!r}; expected "
                          f"one of {MATMUL_PRECISIONS}")
     cuda_mm = torch.backends.cuda.matmul
-    mkldnn_mm = torch.backends.mkldnn.matmul
-    try:
-        legacy = (cuda_mm.allow_tf32, torch.get_float32_matmul_precision())
-    except RuntimeError:  # set through the per-backend settings
-        legacy = None
-        saved = (cuda_mm.fp32_precision, mkldnn_mm.fp32_precision)
-        cuda_mm.fp32_precision = ("ieee" if precision == "highest"
-                                  else "tf32")
-        mkldnn_mm.fp32_precision = {"highest": "ieee", "high": "tf32",
-                                    "medium": "bf16"}[precision]
-    else:
-        torch.set_float32_matmul_precision(precision)
+    allow_tf32, saved = (cuda_mm.allow_tf32,
+                         torch.get_float32_matmul_precision())
+    torch.set_float32_matmul_precision(precision)
     try:
         yield
     finally:
-        if legacy is None:
-            cuda_mm.fp32_precision, mkldnn_mm.fp32_precision = saved
-        else:
-            torch.set_float32_matmul_precision(legacy[1])
-            if cuda_mm.allow_tf32 != legacy[0]:
-                cuda_mm.allow_tf32 = legacy[0]
+        torch.set_float32_matmul_precision(saved)
+        if cuda_mm.allow_tf32 != allow_tf32:
+            cuda_mm.allow_tf32 = allow_tf32
 
 
 class StepInfo(NamedTuple):

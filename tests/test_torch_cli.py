@@ -4,11 +4,14 @@
   commands, the same text and the same bytes on the bus as the JAX
   package's (oracles ``tests/test_cli.py``, ``tests/test_command_bus.py``).
 - ``legged_demo --device cpu --horizon 10`` runs to its summary with either
-  solver and writes its trajectory, metrics and PNG.
+  solver, writes its trajectory, metrics and PNG, and follows the JAX
+  package's demo on the same files.
 - The two-process ``launch --device cpu``: the port's planning node and
   plant in two processes over the shared-memory bus, with a live gait
-  switch that reaches the plant (oracle
-  ``tests/test_launch.py::test_two_process_launch_with_live_gait_switch``).
+  switch that the planner applies (oracle
+  ``tests/test_launch.py::test_two_process_launch_with_live_gait_switch``),
+  following the JAX package's launcher loop; and where the port's plant
+  departs from the JAX launcher's, and why.
 
 The ``.info`` files are the stand-ins of ``tests/torch_port_util.py``.
 """
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 
 from cheeta_mpc_tpu.cli import gait_command as j_gait
+from cheeta_mpc_tpu.cli import legged_demo as j_demo
 from cheeta_mpc_tpu.cli import pose_command as j_pose
 from cheeta_mpc_tpu_torch.cli import gait_command as t_gait
 from cheeta_mpc_tpu_torch.cli import legged_demo
@@ -32,7 +36,7 @@ from cheeta_mpc_tpu_torch.cli import pose_command as t_pose
 from cheeta_mpc_tpu_torch.transport.mpc_mrt import TOPICS, MpcNode
 from cheeta_mpc_tpu_torch.transport.shm import ShmMessageBus
 from cheeta_mpc_tpu_torch.utils.info_config import load_gait_library
-from tests.torch_port_util import write_info_files
+from tests.torch_port_util import launch_loop, write_info_files
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -118,15 +122,27 @@ def test_commands_cross_the_bus_as_the_jax_clis_send_them(info):
 @pytest.mark.parametrize("solver, seconds", [("sqp", 0.3), ("ddp", 0.15)])
 def test_legged_demo_runs_to_its_summary(solver, seconds, info, tmp_path,
                                          capsys):
+    """The port's demo runs to its summary, and its closed loop (f32, as
+    both demos solve) follows the JAX package's demo on the same files:
+    states within 1e-5, forces within 1e-3 N (the f32 force tolerance of
+    the legged solvers' tests)."""
     task, gait = info
     out = str(tmp_path / f"demo_{solver}")
     png = out + ".png"
-    rc = legged_demo.main([
-        "--device", "cpu", "--horizon", "10", "--solver", solver,
-        "--seconds", str(seconds), "--task-info", task, "--gait-info", gait,
-        "--out", out, "--plot", png])
+    common = ["--horizon", "10", "--solver", solver, "--seconds",
+              str(seconds), "--task-info", task, "--gait-info", gait]
+    rc = legged_demo.main(common + ["--device", "cpu", "--out", out,
+                                    "--plot", png])
     text = capsys.readouterr().out
     assert rc == 0
+    assert j_demo.main(common + ["--out", str(tmp_path / "jax")]) == 0
+    port, ref = np.load(out + "_traj.npz"), np.load(str(tmp_path / "jax")
+                                                    + "_traj.npz")
+    for key, tol in (("states", 1e-5), ("feet", 1e-5), ("forces", 1e-3)):
+        assert port[key].shape == ref[key].shape
+        np.testing.assert_allclose(port[key], ref[key], rtol=0, atol=tol,
+                                   err_msg=key)
+    np.testing.assert_array_equal(port["times"], ref["times"])
     n_steps = int(round(seconds / 0.015))
     solves = 1 + (n_steps - 1) // 2
     assert f"({solves} solves, {solver} solver, soft cone, cpu)" in text
@@ -142,7 +158,10 @@ def test_legged_demo_runs_to_its_summary(solver, seconds, info, tmp_path,
 def test_two_process_launch_with_live_gait_switch(info, tmp_path):
     """Planner and plant as separate processes over shared memory, the
     port's node on the CPU; a gait command published live mid-run is
-    applied, and the robot stays upright through it."""
+    applied by the planner, and the robot stays upright through it. The
+    trajectory is the JAX package's launcher loop on the same files (run in
+    one process, lock-step, through the JAX wire codec; f32 as the launcher
+    solves): states within 1e-5, forces within 1e-3 N."""
     task, gait = info
     out = str(tmp_path / "launch")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -170,4 +189,84 @@ def test_two_process_launch_with_live_gait_switch(info, tmp_path):
             if ln.startswith("[mpc] solves ")]
     assert len(line) == 1
     solves = json.loads(line[0][len("[mpc] solves "):])
-    assert solves["solves"] >= summary["solves"]
+    assert solves["solves"] == summary["policies_received"]
+    # The planner applied the command at the time the plant switched, and
+    # its forces load all four feet after it (the new gait's transition
+    # stance), which the trot never does once it has started at 0.3 s.
+    assert solves["gaits_applied"] == [["standing_trot",
+                                        summary["switched_at"]]]
+    times = traj["times"][:-1]
+    four = (traj["inputs"][:, 2:12:3] > 1.0).all(axis=1)
+    assert four[times >= summary["switched_at"]].any()
+    assert not four[(times >= 0.3) & (times < summary["switched_at"])].any()
+
+    ref = launch_loop(
+        "cheeta_mpc_tpu", task, gait, horizon=10, seconds=0.6,
+        switch=("standing_trot", 0.3),
+        handshake_repeats=summary["policies_received"] - summary["solves"])
+    assert ref["switched_at"] == summary["switched_at"]
+    assert ref["gaits_applied"] == [("standing_trot", ref["switched_at"])]
+    np.testing.assert_array_equal(traj["times"], ref["times"])
+    np.testing.assert_allclose(traj["states"], ref["states"], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(traj["inputs"][:, :12], ref["inputs"][:, :12],
+                               rtol=0, atol=1e-3)
+
+
+def test_the_plant_applies_the_policy_of_its_own_observation():
+    """Where the port's launcher departs from the JAX package's, and why.
+    The handshake re-publishes the initial observation while the planner's
+    first solve runs (here 0.3 s, the others 0.05 s), so the planner
+    answers it once more.
+    The JAX launcher's plant takes the first policy that arrives after it
+    publishes its next observation: that repeat's, made for t = 0, one
+    solve stale, and whether it comes first depends on timing. The port's
+    plant (``launch.wait_for_policy_at``) drains to the policy of its own
+    observation, as the reference's synchronized loop waits for a policy
+    at the current time (MRT_ROS_Dummy_Loop.cpp:96-118)."""
+    from cheeta_mpc_tpu.transport import mpc_mrt as j_mrt
+    from cheeta_mpc_tpu_torch.cli.launch import wait_for_policy_at
+    from cheeta_mpc_tpu_torch.mpc.runtime import PolicyData as TPolicy
+    from cheeta_mpc_tpu_torch.mpc.runtime import SystemObservation as TObs
+    from cheeta_mpc_tpu_torch.transport import mpc_mrt as t_mrt
+    from cheeta_mpc_tpu.mpc.runtime import PolicyData as JPolicy
+    from cheeta_mpc_tpu.mpc.runtime import SystemObservation as JObs
+
+    def planner(policy_cls):
+        def solve(obs):
+            time.sleep(0.05 if calls else 0.3)
+            calls.append(obs.time)
+            return policy_cls(times=obs.time + 0.015 * np.arange(3),
+                              x_traj=np.zeros((3, 2)),
+                              u_traj=np.zeros((2, 1)), K=None)
+        calls = []
+        return solve, calls
+
+    applied = {}
+    for name, mrt_mod, policy_cls, obs_cls in (
+            ("jax", j_mrt, JPolicy, JObs), ("torch", t_mrt, TPolicy, TObs)):
+        bus = mrt_mod.make_bus(native=False)
+        solve, calls = planner(policy_cls)
+        node = mrt_mod.MpcNode(bus, solve)
+        node.launch()
+        try:
+            mrt = mrt_mod.MrtNode(bus)
+            assert mrt.reset_mpc(timeout_s=5.0)
+            assert mrt.wait_for_initial_policy(
+                obs_cls(time=0.0, state=np.zeros(2), input=None, mode=0),
+                timeout_s=10.0)
+            mrt.set_current_observation(
+                obs_cls(time=0.03, state=np.zeros(2), input=None, mode=0))
+            if name == "jax":  # cheeta_mpc_tpu/cli/launch.py run_dummy
+                seq = bus.wait_for("mpc_policy", mrt._last_policy_seq,
+                                   timeout_s=10.0)
+                assert seq > mrt._last_policy_seq
+                mrt.spin_once()
+                mrt.update_policy()
+            else:
+                assert wait_for_policy_at(mrt, 0.03, timeout_s=10.0)
+            applied[name] = mrt.active_policy.times[0]
+            assert calls[:2] == [0.0, 0.0]  # the repeat was answered
+        finally:
+            node.shutdown()
+    assert applied == {"jax": 0.0, "torch": 0.03}

@@ -28,8 +28,6 @@ def _legacy():
 def default_flags():
     """Every test starts and ends at torch's defaults."""
     yield
-    MM.fp32_precision = "ieee"
-    torch.backends.mkldnn.matmul.fp32_precision = "ieee"
     torch.set_float32_matmul_precision("highest")
     assert _legacy() == (False, "highest")
 
@@ -77,18 +75,6 @@ def test_flags_come_back_after_an_error(monkeypatch):
     with pytest.raises(RuntimeError, match="inside the solve"):
         _solve("highest", boom, monkeypatch)
     assert _legacy() == before == (True, "high")
-
-
-def test_backend_level_settings_are_kept_as_they_were_made():
-    """A caller that set the per-backend ``fp32_precision`` (torch then
-    refuses to read the legacy flags) gets exactly those back."""
-    MM.fp32_precision = "tf32"
-    torch.backends.mkldnn.matmul.fp32_precision = "bf16"
-    with scp.matmul_precision("highest"):
-        assert MM.fp32_precision == "ieee"
-        assert torch.backends.mkldnn.matmul.fp32_precision == "ieee"
-    assert MM.fp32_precision == "tf32"
-    assert torch.backends.mkldnn.matmul.fp32_precision == "bf16"
 
 
 def test_unknown_precision_raises_and_changes_nothing():

@@ -336,3 +336,101 @@ def jax_legged_solve(cfg, scp, inputs, warm=None, dts=None, batched=False):
     if dts is not None:
         args += (jnp.asarray(dts, cfg.dtype),)
     return jax.jit(jax.vmap(run) if batched else run)(*args)
+
+
+def launch_loop(pkg, task_info, gait_info, *, horizon, seconds,
+                cone="soft", solver="sqp", switch=None, f64=False,
+                handshake_repeats=0, replan=True) -> dict:
+    """The deployed loop of ``cli/launch.py`` (its ``--role mpc`` and
+    ``--role dummy`` processes at their defaults: trot at 0.25 m/s, two
+    plant steps per solve) in one process on package ``pkg``
+    (``"cheeta_mpc_tpu"`` or ``"cheeta_mpc_tpu_torch"``, on the CPU), in
+    lock-step: every message crosses that package's wire codec, a gait
+    command ``switch`` = (name, t) reaches the planner before the
+    observation it precedes, and each tick applies the policy of its own
+    observation.
+
+    ``handshake_repeats``: how many more times the planner answered the
+    initial observation (the handshake re-publishes it while the first
+    solve runs). Those policies warm-start the next solve and are not
+    applied, as in the launcher. ``replan=False`` applies the first policy
+    throughout: a planner that stopped answering.
+
+    Returns a dict of ``times``, ``states``, ``inputs`` (as the launcher's
+    ``_traj.npz``), ``switched_at`` and the planner's ``gaits_applied``.
+    """
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    if pkg == "cheeta_mpc_tpu":
+        import jax.numpy as jnp
+        dtype, device = (jnp.float64 if f64 else jnp.float32), {}
+
+        def arr(a):
+            return jnp.asarray(a, dtype)
+    else:
+        dtype = torch.float64 if f64 else torch.float32
+        device = {"device": "cpu"}
+
+        def arr(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+    node, runtime, wire = (mod("mpc.legged_node"), mod("mpc.runtime"),
+                           mod("transport.wire"))
+    srbd_step = mod("models.srbd_legged").srbd_step
+    cfg = mod("mpc.legged_mpc").LeggedMpcConfig.from_task_info(
+        task_info, horizon=horizon, cone_mode=cone, dtype=dtype)
+    library = mod("utils.info_config").load_gait_library(gait_info)
+
+    def trot():
+        gs = mod("gait.schedule").GaitSchedule.stance(library["trot"], t0=0.0)
+        gs.phase_transition_stance_time = 0.1
+        gs.insert_template(library["trot"], insert_time=0.2)
+        return gs
+
+    x0 = node.default_stance_state(cfg)
+    planner = node.LeggedPlannerAssembly(
+        cfg, trot(), x0, v_cmd=np.array([0.25, 0.0, 0.0]),
+        settings=node.PlannerSettings(solver=solver), **device)
+    plant_gait = trot()
+    DT = float(cfg.params.dt)
+    mrt = runtime.MrtBase()
+
+    def answer(t, x):
+        obs = wire.decode_observation(wire.encode_observation(
+            runtime.SystemObservation(time=t, state=x, input=None, mode=0)))
+        mrt.move_to_buffer(wire.decode_policy(wire.encode_policy(
+            planner.solve_fn(obs))))
+
+    answer(0.0, x0)
+    mrt.update_policy()
+    for _ in range(handshake_repeats):
+        answer(0.0, x0)
+    t, x, switched_at = 0.0, x0.copy(), None
+    times, states, inputs = [t], [x.copy()], []
+    for step in range(int(round(seconds / DT))):
+        if replan and step > 0 and step % 2 == 0:
+            if switch is not None and t >= switch[1]:
+                name = switch[0]
+                planner.on_gait_command(*wire.decode_gait_command(
+                    wire.encode_gait_command(name, library[name])))
+                switched_at = t + horizon * DT
+                plant_gait.insert_template(library[name],
+                                           insert_time=switched_at)
+                switch = None
+            answer(t, x)
+            mrt.update_policy()
+        u = mrt.evaluate_policy(t, x)
+        e = plant_gait.get_mode_schedule(max(0.0, t - 1.0), t + 1.0)\
+            .contact_flags_at(t + 0.5 * DT)
+        x = np.asarray(srbd_step(cfg.params, arr(x), arr(u),
+                                 arr(np.asarray(e))), np.float64)
+        t += DT
+        times.append(t)
+        states.append(x.copy())
+        inputs.append(np.asarray(u, np.float64).copy())
+    return {"times": np.asarray(times), "states": np.asarray(states),
+            "inputs": np.asarray(inputs), "switched_at": switched_at,
+            "gaits_applied": list(planner.receiver.applied)}
