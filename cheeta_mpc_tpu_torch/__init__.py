@@ -7,20 +7,32 @@ one CUDA graph per call signature in place of ``jit``, and hand-written
 CUDA kernels (``csrc/``, built by ``native/build.py`` at first launch) in
 place of the Pallas kernels.
 
-Ported so far — the centroidal MPC main path, the legged SRBD MPC, the
-real-time planning path on top of them and the deployed runtime around it:
+Ported: everything the JAX package does apart from its benchmark
+(``bench.py``, ``utils/device_timing.py``) — the centroidal MPC main path,
+the legged SRBD MPC, the real-time planning path on top of them, the
+deployed runtime around it, the convex SRB MPC, the second equality mode,
+the condensed backend and the scenario mesh:
 
 - ``core.types``            problem/solution containers
 - ``ops.linalg_small``      SPD inverse of the torch executor
 - ``ops.riccati``           Riccati recursions (with and without equalities)
+                            and ``fold_terminal_equality``
 - ``ops.ocpqp``             Mehrotra predictor-corrector IPM, torch executor
+- ``ops.projection``        null-space projection of stage equalities
+                            (``eq_mode='projected'``)
+- ``ops.condensed``         states eliminated, dense IPM in the inputs
+                            (``qp_backend='condensed'``, plain torch)
 - ``ops.cuda_ipm_riccati``  the whole IPM of one problem as one CUDA kernel
-- ``ops.cuda_ipm_batch``    the same kernel over a batch (one block/problem),
-                            and the dispatch over all four kernels
+- ``ops.cuda_ipm_batch``    the same kernel over a batch (one block/problem,
+                            stage equalities allowed), and the dispatch over
+                            all four kernels
 - ``ops.cuda_eq_riccati``   the exact equality-constrained Riccati solve of
                             one problem as one CUDA kernel
 - ``ops.cuda_eq_batch``     the same kernel over a batch
 - ``models.centroidal``     centroidal dynamics with closed-form Jacobians
+- ``models.srb``, ``mpc.convex_mpc``
+                            the single-rigid-body model and the convex SRB MPC
+                            (one QP per solve, one CUDA graph per signature)
 - ``models.quadruped_kinematics``, ``models.srbd_legged``
                             closed-form leg kinematics, the SRBD step and its
                             forward-mode Jacobians
@@ -48,6 +60,9 @@ real-time planning path on top of them and the deployed runtime around it:
                             the MPC/MRT runtime, config files and timers
                             (numpy copies)
 - ``utils.cuda_graph``      ``graphed``: one CUDA graph per call signature
+- ``parallel.mesh``         scenario batches over devices and processes
+                            (``torch.distributed``: gloo on the CPU, nccl on
+                            the cards)
 - ``examples``              scenario generators (numpy)
 - ``convert``               numpy/dict -> port objects, for cross-package tests
 

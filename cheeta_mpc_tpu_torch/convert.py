@@ -20,8 +20,10 @@ from cheeta_mpc_tpu_torch.core.types import (CostApprox, DynamicsLin,
                                              StageEquality, resolve_device)
 from cheeta_mpc_tpu_torch.models.quadruped_kinematics import \
     QuadrupedDescription
+from cheeta_mpc_tpu_torch.models.srb import SrbParams
 from cheeta_mpc_tpu_torch.models.srbd_legged import SrbdParams
 from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import CentroidalMpcConfig
+from cheeta_mpc_tpu_torch.mpc.convex_mpc import ConvexMpcConfig
 from cheeta_mpc_tpu_torch.mpc.legged_mpc import LeggedMpcConfig
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
 from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
@@ -113,6 +115,24 @@ def legged_config_from_dict(d: Mapping) -> LeggedMpcConfig:
             **_known(QuadrupedDescription, desc))
         d["params"] = SrbdParams(**_known(SrbdParams, prm))
     return LeggedMpcConfig(**d)
+
+
+def convex_config_from_dict(d: Mapping) -> ConvexMpcConfig:
+    """From the ``_asdict()`` of the JAX package's ``ConvexMpcConfig``
+    (``dtype`` as a name or a numpy dtype; ``params`` as an ``SrbParams``
+    NamedTuple of either package, its ``_asdict()`` or a dict)."""
+    d = _known(ConvexMpcConfig, d)
+    if "dtype" in d:
+        d["dtype"] = torch_dtype(d["dtype"])
+    if "q_diag" in d:
+        d["q_diag"] = _tuples(d["q_diag"])
+    if "params" in d:
+        prm = d["params"]
+        prm = dict(prm if isinstance(prm, Mapping) else prm._asdict())
+        if "inertia" in prm:
+            prm["inertia"] = _tuples(prm["inertia"])
+        d["params"] = SrbParams(**_known(SrbParams, prm))
+    return ConvexMpcConfig(**d)
 
 
 def qp_data_from_numpy(d: Mapping, dtype=None, device="cuda") -> OcpQpData:

@@ -4,6 +4,7 @@
 #include "ipm_launch.inl"
 
 int cheeta::launch_fleet_timed(CHEETA_IPM_LAUNCH_PARAMS) {
-  return cheeta::launch(CHEETA_PICK_FLEET(scratch == nullptr, true),
-                        CHEETA_IPM_LAUNCH_ARGS);
+  return cheeta::launch(
+      CHEETA_PICK_FLEET(scratch == nullptr, dims[4] > 0, true),
+      CHEETA_IPM_LAUNCH_ARGS);
 }

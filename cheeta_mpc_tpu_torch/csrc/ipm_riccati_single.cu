@@ -25,10 +25,12 @@ extern "C" int cheeta_ipm_riccati_single_occupancy(
 
 // What a kernel is built for, into out[0..2]: threads per block, blocks
 // per SM, and the SPD inverse's tableau entries per thread (max(nu, nc)^2
-// must not exceed them times the threads). fleet: 0 = K1, 1 = K2.
-extern "C" void cheeta_ipm_launch_limits(int fleet, int* out) {
-  out[0] = fleet ? cheeta::kFleetThreads : cheeta::kSingleThreads;
-  out[1] = fleet ? cheeta::kFleetBlocksPerSm : 1;
+// must not exceed them times the threads). kernel: 0 = K1, 1 = K2,
+// 2 = K2 with stage equalities.
+extern "C" void cheeta_ipm_launch_limits(int kernel, int* out) {
+  out[0] = kernel ? cheeta::fleet_threads(kernel == 2)
+                  : cheeta::kSingleThreads;
+  out[1] = kernel ? cheeta::fleet_blocks_per_sm(kernel == 2) : 1;
   out[2] = cheeta::kInvMine;
 }
 

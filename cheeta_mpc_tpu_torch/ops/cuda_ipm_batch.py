@@ -23,13 +23,19 @@ Source note.
   issues. Any batch size >= 1
   works; there is no lane multiple to pad to. Plain f32 throughout: the
   Pallas module records NaN by IPM iteration ~8 with bf16 factors.
+  Problems with masked stage equalities (the legged pyramid mode) take the
+  instantiation that eliminates them: K1's block of 384 threads, one block
+  per SM (at N=67, nx=nu=24 the iterate and work arrays fill an SM's shared
+  memory), so problem i runs K1's instructions on problem i.
 
-Scope (the centroidal fleet workload): inequality-constrained f32 problems
-whose constraint matrices C/D are shared by the batch, no stage equalities.
-Riccati gains are not produced (the fleet path consumes trajectories only);
-the returned gains are NaN so that consuming them by accident is loud. What
-is out of scope raises with the reason — it is never solved silently by
-another executor.
+Scope (the centroidal fleet, the convex SRB MPC's scenario batch and the
+batched legged pyramid mode): inequality-constrained f32 problems whose
+constraint matrices C/D are shared by the batch, with or without masked
+stage equalities, which may differ from problem to problem. Riccati gains
+are not produced (the fleet path consumes trajectories only); the returned
+gains are NaN so that consuming them by accident is loud. What is out of
+scope raises with the reason — it is never solved silently by another
+executor.
 """
 
 from __future__ import annotations
@@ -39,8 +45,11 @@ from typing import Callable, Optional
 import torch
 
 from cheeta_mpc_tpu_torch.core.types import (OcpQpData, OcpQpSolution,
-                                             RiccatiGains, tree_map)
-from cheeta_mpc_tpu_torch.ops.cuda_ipm_riccati import (launch_ipm_kernel,
+                                             RiccatiGains, StageEquality,
+                                             tree_map)
+from cheeta_mpc_tpu_torch.ops.cuda_ipm_riccati import (FLEET_ENTRY,
+                                                       _masked_eq,
+                                                       launch_ipm_kernel,
                                                        solve_ocp_qp_kernel,
                                                        solve_ocp_qp_plain)
 from cheeta_mpc_tpu_torch.ops.ocpqp import (IpmSettings, _constraint_values,
@@ -51,9 +60,6 @@ def out_of_scope_reason(data: OcpQpData) -> Optional[str]:
     """Why a batched problem cannot go to the fleet kernel, or None."""
     if data.con is None:
         return "the problem has no inequality rows (data.con is None)"
-    if data.eq is not None:
-        return ("the problem has stage equalities (data.eq), which the "
-                "fleet kernel does not eliminate")
     if data.con.C.dim() != 3 or data.con.D.dim() != 3:
         return ("the constraint matrices con.C/con.D carry a batch "
                 "dimension; the fleet kernel takes one C/D shared by the "
@@ -77,7 +83,10 @@ def solve_ocp_qp_fleet_plain(data: OcpQpData,
                              settings: IpmSettings) -> OcpQpSolution:
     """Plain PyTorch version of the fleet kernel: the batch-1 kernel's plain
     version run over the batch dimension (the two kernels share their
-    device code, so they share their arithmetic), gains replaced by NaN."""
+    device code, so they share their arithmetic; masked stage equalities
+    are zeroed and eliminated as there), gains replaced by NaN. The
+    kernel's scope (:func:`out_of_scope_reason`) is checked by
+    :func:`solve_ocp_qp_fleet` before either runs."""
     sol = solve_ocp_qp_plain(data, settings)
     dyn = data.dyn
     return sol.replace(gains=_nan_gains(
@@ -103,7 +112,7 @@ def solve_ocp_qp_fleet(data: OcpQpData,
     if data.dx0.device.type == "cpu":
         return solve_ocp_qp_fleet_plain(data, settings)
     batch = data.dx0.shape[0]
-    out = launch_ipm_kernel("cheeta_ipm_riccati_fleet", data, settings,
+    out = launch_ipm_kernel(FLEET_ENTRY, _masked_eq(data), settings,
                             batch=batch, gains=False)
     solve_ocp_qp_fleet.launches += 1
     dx, du = out["dx"], out["du"]
@@ -129,20 +138,41 @@ def solve_ocp_qp_fleet(data: OcpQpData,
 solve_ocp_qp_fleet.launches = 0
 
 
+def with_masked_equality_row(data: OcpQpData) -> OcpQpData:
+    """``data`` (no inequality rows, no stage equalities) with one stage
+    equality row that is masked off at every stage: zero C, D and e. The
+    equality-Riccati elimination then drops it exactly (its multiplier's
+    block is the inactive-row regularization alone), so the solve is the
+    unconstrained LQR solve, and the problem is one the equality-Riccati
+    kernels take. The row carries the batch dimensions of ``dx0``."""
+    dyn = data.dyn
+    lead = data.dx0.shape[:-1]
+    kw = dict(dtype=data.dx0.dtype, device=data.dx0.device)
+    N, nx, nu = dyn.horizon, dyn.nx, dyn.nu
+    return data.replace(eq=StageEquality(
+        C=torch.zeros(lead + (N, 1, nx), **kw),
+        D=torch.zeros(lead + (N, 1, nu), **kw),
+        e=torch.zeros(lead + (N, 1), **kw),
+        mask=torch.zeros(lead + (N, 1), **kw)))
+
+
 def make_fleet_qp_solver(
         settings: IpmSettings) -> Callable[[OcpQpData], OcpQpSolution]:
     """One QP solver for every path of ``qp_backend='riccati_kernel'``.
 
     With inequality rows (``data.con``): the batch-1 interior-point kernel
-    for an unbatched problem (real gains, stage equalities allowed), the
-    fleet interior-point kernel for a batched one (NaN gains). Without
-    them but with stage equalities (``data.eq``): the batch-1
-    equality-Riccati kernel (ops/cuda_eq_riccati.py) for an unbatched
-    problem, the fleet one (ops/cuda_eq_batch.py, NaN P/p) for a batched
-    one. A problem outside its kernel's scope raises ``NotImplementedError``
-    naming the reason — a batched problem with inequalities *and*
-    equalities, or one with neither; the JAX package falls back to a
-    vmapped scan there, the port does not."""
+    for an unbatched problem (real gains), the fleet interior-point kernel
+    for a batched one (NaN gains), either with or without masked stage
+    equalities. Without them but with stage equalities (``data.eq``): the
+    batch-1 equality-Riccati kernel (ops/cuda_eq_riccati.py) for an
+    unbatched problem, the fleet one (ops/cuda_eq_batch.py, NaN P/p) for a
+    batched one. With neither (the reduced problem of a projected solve
+    without inequality rows), the same equality-Riccati kernels on the
+    problem with one all-masked equality row
+    (:func:`with_masked_equality_row`). A problem outside its kernel's scope
+    raises ``NotImplementedError`` naming the reason — for example a batch
+    whose inequality matrices C/D differ from problem to problem; the JAX
+    package falls back to a vmapped scan there, the port does not."""
     from cheeta_mpc_tpu_torch.ops.cuda_eq_batch import solve_eq_lqr_fleet
     from cheeta_mpc_tpu_torch.ops.cuda_eq_riccati import (EQ_EPS,
                                                           solve_eq_lqr_kernel)
@@ -151,6 +181,8 @@ def make_fleet_qp_solver(
         data = tree_map(lambda t: t.contiguous(), data)
         batched = data.dx0.dim() != 1
         if data.con is None:
+            if data.eq is None or data.eq.nc == 0:
+                data = with_masked_equality_row(data)
             solve = solve_eq_lqr_fleet if batched else solve_eq_lqr_kernel
             return solve(data, reg=settings.reg, eps=EQ_EPS)
         if batched:

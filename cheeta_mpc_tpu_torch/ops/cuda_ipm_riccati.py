@@ -144,13 +144,15 @@ def tensor_pointers(named, dev, batch: Optional[int]):
     return ptrs, strides
 
 
-def launch_limits(lib, entry: str):
+def launch_limits(lib, entry: str, has_eq: bool = False):
     """``(threads, blocks_per_sm, inverse_entries_per_thread)`` that the
-    library builds ``entry``'s kernel for (csrc/ipm_launch.inl): threads per
-    block, blocks that share an SM, and the SPD inverse's tableau entries
-    that one thread keeps in registers."""
+    library builds ``entry``'s kernel for (csrc/ipm_launch.inl), with or
+    without stage equalities: threads per block, blocks that share an SM,
+    and the SPD inverse's tableau entries that one thread keeps in
+    registers."""
     out = (ctypes.c_int * 3)()
-    lib.cheeta_ipm_launch_limits(int(entry == FLEET_ENTRY), out)
+    kernel = 0 if entry != FLEET_ENTRY else 2 if has_eq else 1
+    lib.cheeta_ipm_launch_limits(kernel, out)
     return tuple(out)
 
 
@@ -166,7 +168,7 @@ def shared_memory_plan(lib, entry: str, shape, iters: int, device):
     # system's).
     optin = getattr(props, "shared_memory_per_block_optin", 232448)
     per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-    blocks_per_sm = launch_limits(lib, entry)[1]
+    blocks_per_sm = launch_limits(lib, entry, shape[4] > 0)[1]
     limit = min(optin, per_sm // blocks_per_sm - 1024)
     for placement, in_shared in PLACEMENTS:
         dims = (ctypes.c_int * 6)(*shape, iters)
@@ -208,7 +210,7 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
                   ("eq.e", eq.e, (N, nc)), ("eq.mask", eq.mask, (N, nc))]
     ptrs, strides = tensor_pointers(named, dev, batch)
     lib = load_library()
-    threads, _, per_thread = launch_limits(lib, entry)
+    threads, _, per_thread = launch_limits(lib, entry, nc > 0)
     nmax = max(nu, nc)
     _check(nmax * nmax <= per_thread * threads,
            f"nu={nu}, nc={nc}: the kernel's SPD inverse keeps {per_thread} "
@@ -264,9 +266,8 @@ def launch_ipm_kernel(entry: str, data: OcpQpData, settings: IpmSettings,
 
 def _entry_data(entry: str, data: OcpQpData):
     """(data as the entry's kernel takes it, batch or None)."""
-    if entry != FLEET_ENTRY:
-        return _masked_eq(data), None
-    return data, data.dx0.shape[0]
+    return _masked_eq(data), (data.dx0.shape[0] if entry == FLEET_ENTRY
+                              else None)
 
 
 def section_times(launch, timers: torch.Tensor, classes) -> dict:
@@ -338,7 +339,7 @@ def launch_occupancy(entry: str, data: OcpQpData,
     dev = data.dx0.device
     placement, _, smem = shared_memory_plan(lib, entry, shape, int(s.iters),
                                             dev)
-    threads = launch_limits(lib, entry)[0]
+    threads = launch_limits(lib, entry, nc > 0)[0]
     res = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         check_launch(lib, getattr(lib, entry + "_occupancy")(

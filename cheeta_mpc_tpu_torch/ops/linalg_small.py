@@ -29,7 +29,13 @@ def spd_inverse(G: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return G
     L, info = torch.linalg.cholesky_ex(G)
-    X = torch.cholesky_inverse(L)
+    # L^-1 by a triangular solve, then X = L^-T L^-1: on a card a batched
+    # torch.cholesky_inverse goes through MAGMA, which aborts the process
+    # when it runs inside a CUDA graph capture (the condensed backend's
+    # gains at batch 1024); the triangular solve is cuBLAS's and captures.
+    eye = torch.eye(n, dtype=G.dtype, device=G.device).expand(G.shape)
+    Li = torch.linalg.solve_triangular(L, eye, upper=False)
+    X = Li.transpose(-1, -2) @ Li
     bad = (info != 0)[..., None, None]
     X = torch.where(bad, torch.full_like(X, float("nan")), X)
     return 0.5 * (X + X.transpose(-1, -2))

@@ -19,7 +19,8 @@ import torch
 
 from cheeta_mpc_tpu_torch.core.types import (CostApprox, DynamicsLin,
                                              OcpQpData, OcpQpSolution,
-                                             RiccatiGains, symmetrize)
+                                             RiccatiGains, StageEquality,
+                                             symmetrize)
 from cheeta_mpc_tpu_torch.ops.linalg_small import spd_inverse
 
 
@@ -266,3 +267,58 @@ def cost_of(cost: CostApprox, dx: torch.Tensor,
     term = (0.5 * torch.sum(dxN * bmv(cost.Q[..., -1, :, :], dxN), dim=-1)
             + torch.sum(cost.q[..., -1, :] * dxN, dim=-1))
     return stage + term
+
+
+def fold_terminal_equality(data: OcpQpData, C_N, e_N, mask_N) -> OcpQpData:
+    """Exact terminal-equality support: state-only terminal rows
+    ``C_N dx_N + e_N = 0`` are pulled back through the final dynamics
+    (``dx_N = A dx_{N-1} + B du_{N-1} + b``) into stage-(N-1) state-input
+    equality rows ``(C_N A) dx + (C_N B) du + (C_N b + e_N) = 0`` — the
+    role of the reference's terminal transcription, which hands terminal
+    constraints to HPIPM directly (MultipleShootingTranscription.cpp:
+    114-130). Exact for any feasible QP: the pulled-back rows hold iff the
+    terminal rows hold along dynamics-feasible trajectories.
+
+    C_N: (..., nt, nx), e_N: (..., nt), mask_N: (..., nt). Returns data with
+    the rows appended to the (possibly absent) stage-equality block; every
+    other stage carries zero-masked padding, so shapes stay static.
+    """
+    dyn = data.dyn
+    kw = dict(dtype=data.dx0.dtype, device=data.dx0.device)
+    C_N, e_N, mask_N = (torch.as_tensor(a, **kw) for a in (C_N, e_N, mask_N))
+    Nh, nx, nu = dyn.horizon, dyn.nx, dyn.nu
+    nt = C_N.shape[-2]
+    A, B, b = dyn.A[..., -1, :, :], dyn.B[..., -1, :, :], dyn.b[..., -1, :]
+    Cm = mask_N[..., :, None] * C_N
+    Cp = Cm @ A  # (..., nt, nx)
+    Dp = Cm @ B  # (..., nt, nu)
+    ep = mask_N * (bmv(C_N, b) + e_N)  # (..., nt)
+    lead = torch.broadcast_shapes(Cp.shape[:-2], Dp.shape[:-2],
+                                  ep.shape[:-1], mask_N.shape[:-1])
+
+    def at_last_stage(rows, width):
+        """(..., rows) with ``width`` row dims -> (..., N, rows), zero but
+        at stage N-1."""
+        rows = rows.expand(lead + rows.shape[rows.dim() - width:])
+        out = torch.zeros(lead + (Nh,) + rows.shape[len(lead):], **kw)
+        out.select(len(lead), Nh - 1).copy_(rows)
+        return out
+
+    extC, extD = at_last_stage(Cp, 2), at_last_stage(Dp, 2)
+    exte, extm = at_last_stage(ep, 1), at_last_stage(mask_N, 1)
+    if data.eq is None:
+        eq = StageEquality(C=extC, D=extD, e=exte, mask=extm)
+    else:
+        old = data.eq
+
+        def join(a, c, row_dim):
+            shape = torch.broadcast_shapes(a.shape[:row_dim],
+                                           c.shape[:row_dim])
+            return torch.cat([a.expand(shape + a.shape[row_dim:]),
+                              c.expand(shape + c.shape[row_dim:])],
+                             dim=row_dim)
+
+        eq = old.replace(C=join(old.C, extC, -2), D=join(old.D, extD, -2),
+                         e=join(old.e, exte, -1),
+                         mask=join(old.mask, extm, -1))
+    return data.replace(eq=eq)

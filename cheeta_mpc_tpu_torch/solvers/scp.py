@@ -66,10 +66,17 @@ class ScpSettings(NamedTuple):
     # batch; their plain versions on CPU tensors), the counterpart of the
     # JAX package's 'riccati_pallas' and the port's default, so the normal
     # entry points go through the kernels; 'riccati' — the plain torch
-    # executor (ops/ocpqp.py), any dtype and device.
+    # executor (ops/ocpqp.py), any dtype and device; 'condensed' — states
+    # eliminated, a dense IPM in the inputs (ops/condensed.py, plain torch:
+    # batched matrix products and Cholesky; HPIPM's condensing mode
+    # analogue, kept for cross-checks and as the dense oracle).
     qp_backend: str = 'riccati_kernel'
-    # Stage-equality handling: only 'riccati' (masked eq-Riccati
-    # elimination) is ported so far.
+    # Stage-equality handling: 'riccati' = masked eq-Riccati elimination
+    # (handles mode-dependent masks); 'projected' = null-space projection +
+    # change of input variables (ops/projection.py, the reference's
+    # projectStateInputEqualityConstraints=true mode; every row active, D of
+    # full row rank), whose reduced problem goes to the backend above. Both
+    # must agree (tests/test_torch_projection.py).
     eq_mode: str = 'riccati'
     # Filter-acceptance thresholds.
     g_max: float = 1e6
@@ -186,16 +193,21 @@ def _solve_nonlinear_ocp(linearize, performance, x_init, u_init,
         def qp_solve(data):
             return solve_ocp_qp(data, settings.ipm)
     elif settings.qp_backend == 'condensed':
-        raise NotImplementedError(
-            "qp_backend='condensed' (ops/condensed.py) is not ported yet; "
-            "it belongs to a later slice of the port")
+        from cheeta_mpc_tpu_torch.ops.condensed import solve_ocp_qp_condensed
+
+        def qp_solve(data):
+            return solve_ocp_qp_condensed(data, settings.ipm)
     else:
         raise ValueError(f"unknown qp_backend {settings.qp_backend!r}")
     if settings.eq_mode == 'projected':
-        raise NotImplementedError(
-            "eq_mode='projected' (ops/projection.py) is not ported yet; it "
-            "belongs to a later slice of the port")
-    if settings.eq_mode != 'riccati':
+        from cheeta_mpc_tpu_torch.ops.projection import \
+            solve_ocp_qp_projected
+        reduced_solve = qp_solve
+
+        def qp_solve(data):
+            return solve_ocp_qp_projected(
+                data, settings.ipm, inner=lambda d, _: reduced_solve(d))
+    elif settings.eq_mode != 'riccati':
         raise ValueError(f"unknown eq_mode {settings.eq_mode!r}")
 
     # The ladder, filled on the device entry by entry: a tensor made from the

@@ -19,7 +19,14 @@ real-time planning path: each of those five solves as one CUDA graph per
 solve against its eager run (``graph_vs_eager``: results, host launches,
 kernels by name in a profiled replay, p50/p99 solve time), the 20-tick
 receding-horizon loop as one graph (``closed_loop``) and the legged planning
-node in the lock-step dummy loop (``legged_node``). Then the DDP planning
+node in the lock-step dummy loop (``legged_node``). Then the last slice of
+the port: the batched legged pyramid mode at batch 128 and 512 through K2
+with stage equalities (``pyramid_fleet``), the convex SRB MPC at one
+scenario (K1) and 4096 (K2), standing and trot (``convex_mpc``), the
+circular-kinematics OCP in both equality modes and the centroidal MPC under
+the condensed backend (``projected_condensed``), and the convex fleet
+sharded over ``parallel.mesh.make_mesh`` with the fleet's health reduced
+through a one-process nccl group (``mesh``). Then the DDP planning
 node (``solver='ddp'``) in the same loop (``legged_ddp``), and the deployed
 topology (``launch``): ``cli.launch`` with its planner and plant in two
 processes over the shared-memory bus (soft cone with a live gait switch,
@@ -47,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -109,7 +117,8 @@ TOL_LEG_PLAIN = 5e-4
 TOL_PYRAMID = 1e-3  # stance forces inside the friction pyramid, N
 
 # The graphed paths (one CUDA graph per solve signature, utils/cuda_graph.py).
-GRAPH_SOLVES = 200  # host-clock solves per path and mode, for p50 / p99
+GRAPH_SOLVES = 200  # host-clock graphed solves per path, for p50 / p99
+EAGER_SOLVES = 50  # host-clock eager solves per path (beside the graphed)
 BUDGET_MS, BUDGET_P99_MS = 20.0, 30.0  # 50 Hz replanning; BASELINE's p99
 # The four kernels as a profiler trace names them, K1..K4.
 KERNEL_NAMES = ("ipm_riccati_single_kernel", "ipm_riccati_fleet_kernel",
@@ -145,6 +154,44 @@ LAUNCH_TROT_FROM_S = 0.3  # after 0.2 s of stance and 0.1 s of transition
 LAUNCH_DRIFT_M = 0.25
 LAUNCH_OBS = 60  # observations the script sends the spawned planner
 LAUNCH_TIMEOUT_S = 600
+# The batched legged pyramid mode (K2 with its 16 stage-equality rows per
+# problem) at the reference's scale, as the fleet path runs it. Element 1 of
+# a batch against its batch-1 solve (K1): the two kernels run the same
+# instructions on a problem, so 5e-4 N leaves room only for the line
+# search's batched arithmetic.
+PYRAMID_FLEETS = (LEGGED_FLEET_SMALL, LEGGED_FLEET)
+TOL_PYRAMID_ELEMENT = 5e-4
+PYRAMID_FLEET_SOLVES = 20  # host-clock graphed solves per batch
+# The convex SRB MPC, BASELINE config 2 at full width: N=10, dt=0.03, 13
+# states, 12 force inputs, 20 pyramid rows, 12 IPM iterations, f32, the
+# SrbParams of tests/test_convex_mpc.py:13-14, the JAX tests' scenarios:
+# one standing at the nominal 0.3 m (K1) and a fleet of 4096 (K2, BASELINE
+# config 5's batch), each standing at its own height in [0.28, 0.32] m
+# (tests/test_parallel.py's batch, spread over a band). The IPM's f32
+# convergence freeze sits at mu < 1e-6: at the f32 default (1e-4) this QP
+# stops before its forces settle, in the JAX package as in the port (its
+# f32 forces then miss the f64 ones by up to 7.4 N standing), and below
+# 1e-6 the f32 iterates part between executors (K2 against its plain
+# version: 0.12 N in du at 1e-8 on an H100). Forces against the f64 CPU
+# solve: 4.2e-2 N standing, 1.4e-2 trot on the CPU with the plain versions
+# (tests/test_torch_srb_convex_mpc.py), bound 5e-2 N (TOL_GRF). Off the
+# feet's centre the split between legs is nearly free (stance force
+# regularization 1e-6) and f32 is not held to f64 there, in either package
+# (ROADMAP queue 3). Stance forces: the total vertical force within 2 % of
+# m g at every stage (the JAX package's test).
+SRB_PARAMS = dict(mass=9.0, inertia=(0.07, 0.26, 0.24), mu=0.5, fz_max=250.0)
+CONVEX_HORIZON, CONVEX_DT, CONVEX_FLEET = 10, 0.03, 4096
+CONVEX_IPM_ITERS, CONVEX_MU_TOL = 12, 1e-6
+CONVEX_F64_ROWS = 256  # fleet scenarios held against the f64 CPU solve
+CONVEX_MG_RTOL = 0.02
+# The circular-kinematics OCP (tests/torch_port_util.py) in both equality
+# modes, f32 on the card: 25 SQP iterations of one K3 launch each. Measured
+# 2.2e-7 (states) and 1.7e-6 (inputs) apart on an H100; bound 1e-4.
+CIRCLE_SQP_ITERS = 25
+CIRCLE_ALPHAS = (1.0, 0.5, 0.25, 0.125, 1 / 16, 1 / 32, 1 / 64)
+TOL_CIRCLE_MODES = 1e-4
+TOL_CIRCLE_F64 = 1e-3  # against the f64 CPU solve (tests/test_torch_projection.py)
+CONDENSED_SOLVES = 50  # host-clock graphed solves per backend and batch
 
 
 def emit(obj) -> None:
@@ -816,10 +863,7 @@ def phase_launch(dev, card) -> dict:
     from cheeta_mpc_tpu_torch.transport.shm import ShmMessageBus
     from cheeta_mpc_tpu_torch.utils.info_config import load_gait_library
     root = pathlib.Path(__file__).resolve().parent
-    spec = importlib.util.spec_from_file_location(
-        "torch_port_util", root / "tests" / "torch_port_util.py")
-    util = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(util)
+    util = load_util()
     env = dict(os.environ, PYTHONPATH=str(root))
     launch = [sys.executable, "-m", "cheeta_mpc_tpu_torch.cli.launch",
               "--device", dev.type, "--horizon", str(LEGGED_HORIZON)]
@@ -937,6 +981,354 @@ def phase_launch(dev, card) -> dict:
             "height_drift_m": drift,
             "forward_m": float(a[-1, 6] - x0[6])}
     return report
+
+
+def load_util():
+    """tests/torch_port_util.py, loaded by path: the stand-in .info files
+    and the circular-kinematics problem that the tests share (it imports
+    JAX only inside the functions this script does not call)."""
+    root = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_util", root / "tests" / "torch_port_util.py")
+    util = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(util)
+    return util
+
+
+def pyramid_violation(forces, enable, mu, f_max) -> float:
+    """How far the stance forces leave the friction pyramid, in N (<= 0
+    inside)."""
+    outside = torch.stack([
+        forces[..., 0].abs() - mu * forces[..., 2],
+        forces[..., 1].abs() - mu * forces[..., 2],
+        -forces[..., 2], forces[..., 2] - f_max]).amax(dim=0)
+    return float((outside * enable).max())
+
+
+def contig(data):
+    from cheeta_mpc_tpu_torch.core.types import tree_map
+    return tree_map(lambda t: t.contiguous(), data)
+
+
+def kernel_row(launch, plain, data, out, flops, what) -> dict:
+    """A kernel's time (CUDA events, median), its plain version's, and the
+    bound of its work on this run's inputs."""
+    (b, by), nbytes = bound(data, out, flops)
+    return {"ms": median_ms(launch, repeats=5),
+            "plain_ms": median_ms(plain, repeats=2, warmup=1),
+            "bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": flops,
+            "what": what}
+
+
+def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
+                        lcfg_pyr, lmany_np):
+    """The batched legged pyramid mode (N=67, 16 stage equalities and 20
+    pyramid rows per problem) through the fleet kernel's instantiation with
+    the equality elimination, at batch 128 and 512."""
+    report = {"phase": "pyramid_fleet", "card": card,
+              "horizon": LEGGED_HORIZON, "ipm_iters": PYRAMID_IPM_ITERS}
+    for batch in PYRAMID_FLEETS:
+        args_np = tuple(a[:batch] for a in lmany_np.args)
+        args = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in args_np)
+        qp = contig(lsolver_pyr.initial_qp(*args))
+        sk, pk = kit.k2(qp, ipm_pyr), kit.k2_plain(qp, ipm_pyr)
+        torch.cuda.synchronize()
+        err = compare_solutions(sk, pk, False,
+                                f"K2 with stage equalities, batch {batch}")
+        check(bool(torch.isnan(sk.gains.K).all()), "K2 must return NaN gains")
+        tr, sol = kit.graphed_run(f"legged pyramid fleet {batch}",
+                                  lambda: glsolver_pyr(*args_np),
+                                  [0, 1, 0, 0])
+        eager = lsolver_pyr(*args)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(getattr(sol, k), getattr(eager, k))
+                        for k in ("forces", "x_traj", "u_traj", "merit"))
+        check(bit_equal, f"pyramid fleet {batch}: graphed and eager results "
+              "differ")
+        fz_lo, fz_hi = check_legged_forces(sol, args[2],
+                                           f"pyramid fleet {batch}")
+        viol = pyramid_violation(sol.forces, args[2], lcfg_pyr.friction_mu,
+                                 lcfg_pyr.force_max)
+        check(viol <= TOL_PYRAMID, f"pyramid fleet {batch}: a stance force "
+              f"leaves the pyramid by {viol} N")
+        kit.reset_counts()
+        one = lsolver_pyr(*(a[1] for a in args_np))
+        torch.cuda.synchronize()
+        check(kit.counts() == [1, 0, 0, 0],
+              f"the batch-1 pyramid solve launched K1..K4 {kit.counts()}x")
+        el1 = max_abs(sol.forces[1], one.forces)
+        check(el1 <= TOL_PYRAMID_ELEMENT,
+              f"pyramid fleet {batch}: element 1 differs from its batch-1 "
+              f"(K1) solve by {el1} N")
+        wall = wall_spread(lambda: glsolver_pyr(*args_np).forces.cpu(),
+                           n=PYRAMID_FLEET_SOLVES, warmup=1)
+        report[f"batch{batch}"] = {
+            "k2_vs_plain": err, "replay": tr, "k2_launches": tr["kernels"][1],
+            "graphed_equals_eager": bit_equal,
+            "total_fz_min_max": [fz_lo, fz_hi], "outside_pyramid": viol,
+            "element1_vs_batch1_k1": el1, "graphed_ms": wall,
+            "solves_per_s": 1e3 * batch / wall["p50"]}
+    N, nx, nu = qp.dyn.horizon, qp.dyn.nx, qp.dyn.nu
+    row = kernel_row(
+        lambda: kit.k2(qp, ipm_pyr), lambda: kit.k2_plain(qp, ipm_pyr),
+        qp, [sk.dx, sk.du, sk.s_l, sk.s_u, sk.lam_l, sk.lam_u],
+        LEGGED_FLEET * ipm_flops(N, nx, nu, qp.con.ng, qp.eq.nc,
+                                 PYRAMID_IPM_ITERS),
+        f"K2 with stage equalities, batch {LEGGED_FLEET}")
+    row["launches"] = report[f"batch{LEGGED_FLEET}"]["k2_launches"]
+    row["max_abs_err"] = max(err["dx"], err["du"])
+    occ = kit.single_mod.launch_occupancy(kit.single_mod.FLEET_ENTRY, qp,
+                                          ipm_pyr)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ["waves"] = -(-LEGGED_FLEET // (sms * occ["blocks_per_sm"]))
+    check(occ["blocks_per_sm"] >= 1, f"K2 with stage equalities: {occ}")
+    report.update({"kernel": row, "occupancy": occ})
+    return report, row
+
+
+def convex_scenarios(batch: int, gait: str):
+    """``batch`` standing references (each CoM held where it starts, over
+    the feet's centre, at heights spread over [0.28, 0.32] m; one scenario
+    at the nominal 0.3 m), the nominal feet and the gait's contact
+    table."""
+    from cheeta_mpc_tpu_torch.examples import NOMINAL_FEET, trot_table
+    x0 = np.zeros((batch, 13))
+    x0[:, 5] = 0.3 if batch == 1 else np.linspace(0.28, 0.32, batch)
+    x0[:, 12] = 1.0
+    ref = np.repeat(x0[:, None, :], CONVEX_HORIZON + 1, axis=1)
+    enable = (np.ones((CONVEX_HORIZON, 4)) if gait == "stance"
+              else trot_table(CONVEX_HORIZON))
+    return x0, ref, NOMINAL_FEET, enable
+
+
+def phase_convex_mpc(dev, card, kit):
+    """The convex SRB MPC (BASELINE config 2) through ``build_convex_mpc``:
+    one scenario (K1) and 4096 (K2), standing and trot, as CUDA graphs."""
+    from cheeta_mpc_tpu_torch.models.srb import GRAVITY, SrbParams
+    from cheeta_mpc_tpu_torch.mpc.convex_mpc import (ConvexMpcConfig,
+                                                     build_convex_mpc)
+    from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+    params = SrbParams(**SRB_PARAMS)
+    cfg = ConvexMpcConfig(params=params, horizon=CONVEX_HORIZON,
+                          dt=CONVEX_DT)
+    ipm = IpmSettings(iters=CONVEX_IPM_ITERS, mu_tol=CONVEX_MU_TOL)
+    solve64 = build_convex_mpc(cfg._replace(dtype=torch.float64),
+                               IpmSettings(iters=CONVEX_IPM_ITERS),
+                               device="cpu")
+    mg = params.mass * GRAVITY
+    report = {"phase": "convex_mpc", "card": card, "mg": mg,
+              "ipm": ipm._asdict(), "tolerance_f64": TOL_GRF}
+    inputs = {}
+    for gait in ("stance", "trot"):
+        # A solver per gait, so that each gait's first call captures its
+        # graphs (the contact table is an input of the same shape).
+        solve = build_convex_mpc(cfg, ipm, device=dev)
+        for batch in (1, CONVEX_FLEET):
+            x0, ref, feet, enable = convex_scenarios(batch, gait)
+            args = ((x0[0], ref[0], feet, enable) if batch == 1
+                    else (x0, ref, feet, enable))
+            inputs[gait, batch] = args
+            what = f"convex {gait}, batch {batch}"
+            want = [1, 0, 0, 0] if batch == 1 else [0, 1, 0, 0]
+            tr, (f, sol) = kit.graphed_run(what, lambda: solve(*args), want)
+            f_e, _ = getattr(solve, "__wrapped__", solve)(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(f, f_e), f"{what}: graphed and eager differ")
+            check(bool(torch.isfinite(f).all()), f"{what}: forces not finite")
+            on = torch.as_tensor(enable, dtype=f.dtype, device=dev)
+            swing = f.masked_select((on == 0)[..., None].expand_as(f))
+            check(bool((swing == 0).all()),
+                  f"{what}: swing-leg forces are not exactly 0")
+            viol = pyramid_violation(f, on, params.mu, params.fz_max)
+            check(viol <= TOL_PYRAMID,
+                  f"{what}: a stance force leaves the pyramid by {viol} N")
+            fz = f[..., 2].sum(dim=-1)
+            mg_err = float((fz - mg).abs().max()) / mg
+            if gait == "stance":
+                check(mg_err <= CONVEX_MG_RTOL,
+                      f"{what}: total Fz leaves m g by {mg_err:.2%}")
+            rows = min(batch, CONVEX_F64_ROWS)
+            f64, _ = solve64(*((args[0][:rows], args[1][:rows]) + args[2:])
+                             if batch > 1 else args)
+            f64_err = max_abs(f[:rows].cpu() if batch > 1 else f.cpu(), f64)
+            check(f64_err <= TOL_GRF, f"{what}: forces differ from the f64 "
+                  f"CPU solve by {f64_err} N")
+            report[f"{gait}_batch{batch}"] = {
+                "replay": tr, "launches": tr["kernels"][:2],
+                "outside_pyramid": viol, "fz_vs_mg_rel_max": mg_err,
+                "force_err_vs_f64_cpu": f64_err, "f64_rows": rows,
+                "qp_mu_max": float(sol.mu.max())}
+    # Each kernel against its plain version on the trot QPs, and its time.
+    rows = {}
+    for batch, kern, plain, gains in (
+            (1, kit.k1, kit.k1_plain, True),
+            (CONVEX_FLEET, kit.k2, kit.k2_plain, False)):
+        qp = contig(solve.initial_qp(*inputs["trot", batch]))
+        sk, pk = kern(qp, ipm), plain(qp, ipm)
+        torch.cuda.synchronize()
+        err = compare_solutions(sk, pk, gains, f"SRB QP, batch {batch}")
+        flops = batch * ipm_flops(CONVEX_HORIZON, 13, 12, qp.con.ng, 0,
+                                  CONVEX_IPM_ITERS)
+        out = [sk.dx, sk.du, sk.s_l, sk.s_u, sk.lam_l, sk.lam_u]
+        out += tensors_of(sk.gains) if gains else []
+        row = kernel_row(lambda: kern(qp, ipm), lambda: plain(qp, ipm),
+                         qp, out, flops, f"SRB QP, batch {batch}")
+        row["max_abs_err"] = max(err["dx"], err["du"])
+        row["vs_plain"] = err
+        entry = kit.single_mod.FLEET_ENTRY if batch > 1 else \
+            "cheeta_ipm_riccati_single"
+        row["occupancy"] = kit.single_mod.launch_occupancy(entry, qp, ipm)
+        rows["k1" if batch == 1 else "k2"] = row
+    # Graphed solve times on the trot scenario.
+    for batch in (1, CONVEX_FLEET):
+        args = inputs["trot", batch]
+        wall = wall_spread(lambda: solve(*args)[0].cpu())
+        report[f"trot_batch{batch}"].update({
+            "graphed_ms": wall, "solves_per_s": 1e3 * batch / wall["p50"],
+            "p50_within_20ms": wall["p50"] <= BUDGET_MS,
+            "p99_within_30ms": wall["p99"] <= BUDGET_P99_MS})
+    report["kernels"] = rows
+    return report, rows, (cfg, ipm)
+
+
+def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
+                              many):
+    """The second equality mode and the condensed backend: the
+    circular-kinematics OCP in both ``eq_mode``s (K3, on the reduced
+    problem with one all-masked row in the projected mode), and the
+    centroidal MPC under ``qp_backend='condensed'`` against the kernel
+    backend."""
+    from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import \
+        build_centroidal_solver
+    from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+    from cheeta_mpc_tpu_torch.solvers.scp import (ScpSettings,
+                                                  solve_nonlinear_ocp)
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
+    report = {"phase": "projected_condensed", "card": card}
+    sols = {}
+    for dtype, where in ((torch.float32, dev), (torch.float64, "cpu")):
+        for mode in ("riccati", "projected"):
+            lin, perf, x_init, u_init = util.circular_kinematics_problem(
+                dtype, where)
+            st = ScpSettings(iterations=CIRCLE_SQP_ITERS, eq_mode=mode,
+                             alphas=CIRCLE_ALPHAS, ipm=IpmSettings(iters=10),
+                             qp_backend="riccati_kernel" if where == dev
+                             else "riccati")
+            kit.reset_counts()
+            t0 = time.perf_counter()
+            res = solve_nonlinear_ocp(lin, perf, x_init, u_init, st)
+            x, u = res.x.cpu(), res.u.cpu()
+            wall = time.perf_counter() - t0
+            if where == dev:
+                check(kit.counts() == [0, 0, CIRCLE_SQP_ITERS, 0],
+                      f"circle ({mode}) launched K1..K4 {kit.counts()}x; "
+                      f"expected [0, 0, {CIRCLE_SQP_ITERS}, 0]")
+                report[f"circle_{mode}"] = {"k3_launches": kit.counts()[2],
+                                            "eager_s": wall}
+            sols[mode, where == dev] = (x, u)
+    for mode in ("riccati", "projected"):
+        x, u = sols[mode, True]
+        d = x[:-1] + util.CIRCLE_DT * u - x[1:]
+        g = (x[:-1] * u).sum(dim=-1)
+        err64 = max(max_abs(x, sols[mode, False][0]),
+                    max_abs(u, sols[mode, False][1]))
+        check(bool(torch.isfinite(x).all()) and float((d * d).sum()) < 1e-8
+              and float((g * g).sum()) < 1e-8 and err64 <= TOL_CIRCLE_F64,
+              f"circle ({mode}): defects {float((d * d).sum())}, path "
+              f"{float((g * g).sum())}, {err64} from the f64 CPU solve")
+        report[f"circle_{mode}"]["err_vs_f64_cpu"] = err64
+    modes = max(max_abs(sols["riccati", True][0], sols["projected", True][0]),
+                max_abs(sols["riccati", True][1], sols["projected", True][1]))
+    check(modes <= TOL_CIRCLE_MODES,
+          f"circle: the two equality modes differ by {modes}")
+    report["circle_modes_max_abs"] = modes
+    # The centroidal MPC under the condensed backend (plain torch: dense
+    # products and a batched Cholesky, as the JAX package computes it),
+    # one CUDA graph per signature, against the kernel backend's graph.
+    cond = graphed(build_centroidal_solver(
+        cfg, scp._replace(qp_backend="condensed"), device=dev), dev)
+    for name, args in (("batch1", one), (f"fleet{FLEET}", many)):
+        tr, sol_c = kit.graphed_run(f"condensed {name}", lambda: cond(*args),
+                                    [0, 0, 0, 0])
+        sol_k = mpc.solver(*args)
+        torch.cuda.synchronize()
+        grf = max_abs(sol_c.contact_force, sol_k.contact_force)
+        check(bool(torch.isfinite(sol_c.contact_force).all())
+              and grf <= TOL_GRF,
+              f"condensed {name}: GRF differs from the kernel backend by "
+              f"{grf} N")
+        t_c = wall_spread(lambda: cond(*args).contact_force.cpu(),
+                          n=CONDENSED_SOLVES)
+        t_k = wall_spread(lambda: mpc.solver(*args).contact_force.cpu(),
+                          n=CONDENSED_SOLVES)
+        report[f"condensed_{name}"] = {
+            "grf_vs_kernel_backend": grf, "replay": tr,
+            "graphed_ms": t_c, "kernel_backend_graphed_ms": t_k}
+    return report
+
+
+def phase_mesh(dev, card, kit, convex, solf):
+    """``parallel.mesh`` on the card: the convex trot fleet of 4096
+    scenarios, every input with its batch dimension, sharded over
+    ``make_mesh`` (this run's one card) against the unsharded eager solve,
+    and ``aggregate_fleet_health`` / ``host_local_batch_to_global`` of the
+    centroidal fleet's solver health through a one-process nccl group on a
+    localhost store."""
+    import socket
+    import torch.distributed as dist
+    from cheeta_mpc_tpu_torch.mpc.convex_mpc import build_convex_mpc
+    from cheeta_mpc_tpu_torch.parallel import mesh as pm
+    from cheeta_mpc_tpu_torch.solvers.scp import (CONV_METRICS, CONV_PRIMAL,
+                                                  CONV_STEPSIZE)
+    cfg, ipm = convex
+    x0, ref, feet, enable = convex_scenarios(CONVEX_FLEET, "trot")
+    args = (x0, ref, np.tile(feet, (CONVEX_FLEET, 1, 1)),
+            np.tile(enable, (CONVEX_FLEET, 1, 1)))
+    eager = build_convex_mpc(cfg, ipm, device=dev)
+    unsharded, _ = getattr(eager, "__wrapped__", eager)(*args)
+    mesh = pm.make_mesh(1)
+    sharded = pm.sharded_batch_solver(
+        lambda d: build_convex_mpc(cfg, ipm, device=d), mesh)
+    tr, (f, _) = kit.graphed_run("sharded convex fleet",
+                                 lambda: sharded(*args), [0, 1, 0, 0])
+    diff = max_abs(f, unsharded)
+    check(diff <= 1e-6, f"the sharded convex fleet differs from the "
+          f"unsharded solve by {diff} N")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pm.initialize_distributed(f"localhost:{port}", 1, 0)
+    try:
+        gmesh = pm.make_global_mesh()
+        check(dist.get_backend() == "nccl" and gmesh.distributed,
+              f"expected a one-process nccl group: {gmesh}")
+        health = pm.aggregate_fleet_health(gmesh, solf.qp_mu,
+                                           solf.convergence, solf.merit)
+        gathered = pm.host_local_batch_to_global(gmesh, (f,))[0]
+    finally:
+        dist.destroy_process_group()
+    mer = solf.merit.double()
+    finite = torch.isfinite(mer)
+    conv = solf.convergence
+    want = {"n_solves": mer.numel(),
+            "n_converged": int(((conv == CONV_STEPSIZE)
+                                | (conv == CONV_METRICS)
+                                | (conv == CONV_PRIMAL)).sum()),
+            "n_nonfinite": int((~finite).sum()),
+            "mu_mean": float(solf.qp_mu.double()[finite].mean()),
+            "mu_max": float(solf.qp_mu.double()[finite].max()),
+            "merit_mean": float(mer[finite].mean())}
+    got = {k: float(getattr(health, k)) for k in want}
+    check(all(abs(got[k] - want[k]) <= 1e-9 * max(1.0, abs(want[k]))
+              for k in want) and torch.equal(gathered, f),
+          f"fleet health over nccl {got} != local reduction {want}")
+    return {"phase": "mesh", "card": card, "devices": len(mesh.devices),
+            "batch": int(f.shape[0]), "replay": tr,
+            "sharded_vs_unsharded_max_abs": diff,
+            "sharded_equals_unsharded": torch.equal(f, unsharded),
+            "fleet_health": got,
+            "health_of": f"centroidal fleet of {FLEET}"}
 
 
 def main() -> int:
@@ -1063,9 +1455,6 @@ def main() -> int:
 
     lone, lmany = on_card(lone_np.args), on_card(lmany_np.args)
     lsmall = tuple(a[:LEGGED_FLEET_SMALL] for a in lmany)
-
-    def contig(data):
-        return tree_map(lambda t: t.contiguous(), data)
 
     def placement_of(qp, settings):
         eq = qp.eq
@@ -1543,7 +1932,7 @@ def main() -> int:
                         for k in diff)
         check(bit_equal, f"{name}: graphed and eager results differ: {diff}")
         tr_eager, _ = trace_counts(lambda: to_host(eager(*args)))
-        wall_e = wall_spread(lambda: to_host(eager(*args)))
+        wall_e = wall_spread(lambda: to_host(eager(*args)), n=EAGER_SOLVES)
         wall_g = wall_spread(lambda: to_host(graph_fn(*args)))
         graph_report[name] = {
             "graphed_vs_eager_max_abs": diff, "bit_equal": bit_equal,
@@ -1555,7 +1944,8 @@ def main() -> int:
             "graphed_p50_within_20ms": wall_g["p50"] <= BUDGET_MS,
             "graphed_p99_within_30ms": wall_g["p99"] <= BUDGET_P99_MS}
     emit({"phase": "graph_vs_eager", "card": card,
-          "solves_per_mode": GRAPH_SOLVES, "paths": graph_report})
+          "graphed_solves": GRAPH_SOLVES, "eager_solves": EAGER_SOLVES,
+          "paths": graph_report})
 
     # Phase 14: the on-device loop: a cold solve and LOOP_TICKS warm-started
     # receding-horizon ticks on an all-stance hold, captured as one graph.
@@ -1709,7 +2099,24 @@ def main() -> int:
           "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO),
           "seconds_simulated": NODE_MRT_DT * NODE_STEPS, **node_report})
 
-    # Phase 16: the DDP planning node. Phase 17: the deployed two-process
+    # Phases 16-19: the batched legged pyramid mode (K2 with stage
+    # equalities), the convex SRB MPC (K1 and K2 at the SRB shape), the
+    # projected equality mode and the condensed backend, the scenario mesh.
+    kit = types.SimpleNamespace(
+        k1=k1, k1_plain=k1_plain, k2=k2, k2_plain=k2_plain,
+        single_mod=single_mod, graphed_run=graphed_run,
+        reset_counts=reset_counts, counts=counts)
+    pyr_report, k2_eq_row = phase_pyramid_fleet(
+        dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr, lcfg_pyr,
+        lmany_np)
+    emit(pyr_report)
+    cvx_report, srb_rows, convex = phase_convex_mpc(dev, card, kit)
+    emit(cvx_report)
+    emit(phase_projected_condensed(dev, card, kit, load_util(), cfg, scp,
+                                   mpc, one, many))
+    emit(phase_mesh(dev, card, kit, convex, solf))
+
+    # Phase 20: the DDP planning node. Phase 21: the deployed two-process
     # topology with the SQP node on the card (K3 with the soft cone, K1
     # with the pyramid cone, in the planner's own process).
     emit(phase_legged_ddp(dev, card, lcfg, sqp_observations))
@@ -1726,14 +2133,27 @@ def main() -> int:
          "ms": t_k1, "plain_ms": t_k1_plain, "bound_ms": b1,
          "bound_by": by1, "library_ms": None,
          "k1_legged_pyramid_ms": t_k1_pyr,
-         "k1_legged_pyramid_bound_ms": b1p},
+         "k1_legged_pyramid_bound_ms": b1p,
+         "k1_srb_ms": srb_rows["k1"]["ms"],
+         "k1_srb_plain_ms": srb_rows["k1"]["plain_ms"],
+         "k1_srb_bound_ms": srb_rows["k1"]["bound_ms"],
+         "k1_srb_max_abs_err": srb_rows["k1"]["max_abs_err"]},
         {"name": "ipm_riccati_fleet", "route": "cuda",
          "source": "cheeta_mpc_tpu_torch/csrc/ipm_riccati_fleet.cu",
          "replaces": "cheeta_mpc_tpu/ops/pallas_ipm_batch.py:620",
          "launches": launches_k2,
          "max_abs_err": max(err_k2["dx"], err_k2["du"]),
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": b2,
-         "bound_by": by2, "library_ms": None},
+         "bound_by": by2, "library_ms": None,
+         "k2_eq_pyramid_ms": k2_eq_row["ms"],
+         "k2_eq_pyramid_plain_ms": k2_eq_row["plain_ms"],
+         "k2_eq_pyramid_bound_ms": k2_eq_row["bound_ms"],
+         "k2_eq_pyramid_launches": k2_eq_row["launches"],
+         "k2_eq_pyramid_max_abs_err": k2_eq_row["max_abs_err"],
+         "k2_srb_ms": srb_rows["k2"]["ms"],
+         "k2_srb_plain_ms": srb_rows["k2"]["plain_ms"],
+         "k2_srb_bound_ms": srb_rows["k2"]["bound_ms"],
+         "k2_srb_max_abs_err": srb_rows["k2"]["max_abs_err"]},
         {"name": "eq_riccati_single", "route": "cuda",
          "source": "cheeta_mpc_tpu_torch/csrc/eq_riccati_single.cu",
          "replaces": "cheeta_mpc_tpu/ops/pallas_riccati.py:241",

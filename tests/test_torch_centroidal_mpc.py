@@ -172,10 +172,20 @@ def test_facade_and_numpy_export(solved):
 
 
 def test_unported_backends_raise(solved):
-    _, _, _, tcfg, tscp, inputs, _, _, _ = solved
-    for kw, exc in ((dict(qp_backend="condensed"), NotImplementedError),
-                    (dict(eq_mode="projected"), NotImplementedError),
-                    (dict(qp_backend="nope"), ValueError)):
+    """Every backend and equality mode of the JAX package is ported now
+    (``qp_backend='condensed'`` solves: its forces are those of the plain
+    Riccati executor to 1e-6 N; tests/test_torch_condensed.py holds it
+    against the JAX package). What still raises: ``eq_mode='projected'`` on
+    a problem without stage equalities (the centroidal QP has none; the
+    JAX package asserts there), and an unknown backend or mode."""
+    _, _, _, tcfg, tscp, inputs, _, _, sol = solved
+    cond = tm.build_centroidal_solver(
+        tcfg, tscp._replace(qp_backend="condensed"), device="cpu")(*inputs)
+    assert_close(cond.contact_force, sol.contact_force.numpy(), ATOL_SOLVE,
+                 what="condensed contact_force")
+    for kw, exc in ((dict(eq_mode="projected"), ValueError),
+                    (dict(qp_backend="nope"), ValueError),
+                    (dict(eq_mode="nope"), ValueError)):
         solve = tm.build_centroidal_solver(tcfg, tscp._replace(**kw),
                                            device="cpu")
         with pytest.raises(exc):

@@ -41,6 +41,7 @@ from cheeta_mpc_tpu_torch.ops import cuda_eq_riccati as tk
 from cheeta_mpc_tpu_torch.ops.cuda_ipm_batch import make_fleet_qp_solver
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
 from cheeta_mpc_tpu_torch.ops.riccati import solve_eq_lqr as t_solve_eq_lqr
+from cheeta_mpc_tpu_torch.ops.riccati import solve_lqr
 from tests.problem_gen import random_lq_problem
 from tests.test_pallas_riccati import _stabilize, _to_f32, _to_f64, _with_eq
 from tests.torch_port_util import max_err, qp_data_to_torch
@@ -255,8 +256,12 @@ def test_out_of_scope_raises_with_its_reason(case):
 def test_dispatch_of_the_kernel_backend():
     """``qp_backend='riccati_kernel'``: an inequality-free problem goes to
     the equality-Riccati family (real P unbatched, NaN P batched), one with
-    inequalities to the interior-point family; batched inequalities with
-    equalities raise. On the CPU no kernel is launched, so no count moves."""
+    inequalities to the interior-point family, batched inequalities with
+    equalities too (the fleet kernel's instantiation with the elimination:
+    NaN gains, element 0 equal to the batch-1 solve to 1e-6 of scale); a
+    problem with neither goes to the equality-Riccati family with one
+    all-masked row, which is the exact LQR solve (1e-9 of scale). On the
+    CPU no kernel is launched, so no count moves."""
     _, tdata = _batch_of_3("float64")
     one = tree_map(lambda t: t[0], tdata)
     qp_solve = make_fleet_qp_solver(IpmSettings(iters=4, reg=REG))
@@ -268,8 +273,11 @@ def test_dispatch_of_the_kernel_backend():
     assert before == (tk.solve_eq_lqr_kernel.launches,
                       tb.solve_eq_lqr_fleet.launches)
     with_con = one.replace(con=_con_like(one, 2))
-    assert float(qp_solve(with_con).mu) > 0.0  # the interior-point path ran
-    with pytest.raises(NotImplementedError, match="stage equalities"):
-        qp_solve(tdata.replace(con=_con_like(one, 2)))
-    with pytest.raises(NotImplementedError, match="no stage-equality rows"):
-        qp_solve(one.replace(eq=None))
+    s1c = qp_solve(with_con)
+    assert float(s1c.mu) > 0.0  # the interior-point path ran
+    sbc = qp_solve(tdata.replace(con=_con_like(one, 2)))
+    assert bool(torch.isnan(sbc.gains.K).all()) and float(sbc.mu[0]) > 0.0
+    assert max_err(sbc.du[0], s1c.du) <= 1e-6 * _scale(s1c.du)
+    bare = one.replace(eq=None)
+    ref = solve_lqr(bare, reg=REG)
+    assert max_err(qp_solve(bare).du, ref.du) <= 1e-9 * _scale(ref.du)

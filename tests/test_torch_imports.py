@@ -59,7 +59,8 @@ def test_no_jax_import(path):
         assert f"__import__('{name}" not in text
 
 
-@pytest.mark.parametrize("sub", ["transport", "viz", "cli", "native"])
+@pytest.mark.parametrize("sub", ["transport", "viz", "cli", "native",
+                                 "parallel"])
 def test_runtime_edges_are_held_to_the_same_rule(sub):
     """The deployed runtime's subpackages are among the files checked
     above, and their C++ sources name nothing of the JAX package."""
@@ -68,6 +69,36 @@ def test_runtime_edges_are_held_to_the_same_rule(sub):
     for cpp in (PORT / sub).glob("*.cpp"):
         text = cpp.read_text()
         assert "jax" not in text.lower() and "cheeta_mpc_tpu." not in text
+
+
+LAST_SLICE = ("models/srb.py", "mpc/convex_mpc.py", "ops/projection.py",
+              "ops/condensed.py", "ops/riccati.py", "parallel/__init__.py",
+              "parallel/mesh.py")
+
+
+@pytest.mark.parametrize("rel", LAST_SLICE)
+def test_last_slice_modules_are_held_to_the_rule(rel):
+    """The modules of the convex MPC, the projected and condensed QP modes,
+    terminal equalities and the mesh are among the files checked above;
+    they exist under the JAX module's name and place."""
+    assert PORT / rel in PORT_FILES
+    assert (ROOT / "cheeta_mpc_tpu" / rel).is_file()
+
+
+def test_last_slice_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for one without")
+    from cheeta_mpc_tpu_torch.models.srb import SrbParams
+    from cheeta_mpc_tpu_torch.mpc.convex_mpc import (ConvexMpcConfig,
+                                                     build_convex_mpc)
+    from cheeta_mpc_tpu_torch.parallel.mesh import make_mesh
+    cfg = ConvexMpcConfig(params=SrbParams(mass=9.0, inertia=(0.07, 0.26,
+                                                              0.24)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_convex_mpc(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert build_convex_mpc(cfg, device="cpu").initial_qp is not None
 
 
 def test_every_module_imports_without_a_compiler_or_a_card():

@@ -14,6 +14,9 @@ import torch
 
 from cheeta_mpc_tpu_torch.convert import (qp_data_from_numpy,
                                           solution_to_numpy)
+from cheeta_mpc_tpu_torch.core.types import (CostApprox, DynamicsLin,
+                                             OcpQpData, PerformanceIndex,
+                                             StageEquality)
 
 
 # Stand-in task.info and gait.info: the reference's own files are not in the
@@ -434,3 +437,55 @@ def launch_loop(pkg, task_info, gait_info, *, horizon, seconds,
     return {"times": np.asarray(times), "states": np.asarray(states),
             "inputs": np.asarray(inputs), "switched_at": switched_at,
             "gaits_applied": list(planner.receiver.applied)}
+
+
+# The circular-kinematics OCP of tests/test_circular_kinematics.py (the
+# reference's testCircularKinematics.cpp capability): a point in the plane
+# with single-integrator kinematics x_{k+1} = x_k + dt u_k, the bilinear
+# path equality x.u = 0 (motion tangent to the circle), a quadratic cost
+# tracking a target a quarter turn away. Shared by the port's tests and
+# chip_smoke.py, which runs it on the card.
+CIRCLE_N, CIRCLE_DT = 20, 0.1
+CIRCLE_W_X, CIRCLE_W_U = 10.0, 0.1
+CIRCLE_X0, CIRCLE_TARGET = (1.0, 0.0), (0.0, 1.0)
+
+
+def circular_kinematics_problem(dtype, device):
+    """``(linearize, performance, x_init, u_init)`` for
+    ``solvers.scp.solve_nonlinear_ocp``: the JAX test's ``_linearize``
+    (x.u = 0 linearized at the iterate, ``dx0 = x0 - x[0]``) and
+    ``_performance`` (rho = 10), on ``device``; ``performance`` takes the
+    line search's leading ladder axis."""
+    N, dt = CIRCLE_N, CIRCLE_DT
+    kw = dict(dtype=dtype, device=device)
+    eye = torch.eye(2, **kw)
+    target = torch.tensor(CIRCLE_TARGET, **kw)
+    x0 = torch.tensor(CIRCLE_X0, **kw)
+    eyeN, ones = eye.expand(N, 2, 2), torch.ones((N, 1), **kw)
+    Q, S = CIRCLE_W_X * eye.expand(N + 1, 2, 2), torch.zeros((N, 2, 2), **kw)
+
+    def linearize(x, u):
+        eq = StageEquality(C=u[:, None, :], D=x[:-1][:, None, :],
+                           e=torch.sum(x[:-1] * u, dim=-1, keepdim=True),
+                           mask=ones)
+        return OcpQpData(
+            dyn=DynamicsLin(A=eyeN, B=dt * eyeN, b=x[:-1] + dt * u - x[1:]),
+            cost=CostApprox(Q=Q, q=CIRCLE_W_X * (x - target),
+                            R=CIRCLE_W_U * eyeN, r=CIRCLE_W_U * u, S=S),
+            con=None, dx0=x0 - x[0], eq=eq)
+
+    def performance(x, u):
+        cost = (0.5 * CIRCLE_W_X * torch.sum((x - target) ** 2, dim=(-2, -1))
+                + 0.5 * CIRCLE_W_U * torch.sum(u * u, dim=(-2, -1)))
+        d = x[..., :-1, :] + dt * u - x[..., 1:, :]
+        g = torch.sum(x[..., :-1, :] * u, dim=-1)
+        l1 = (torch.sum(torch.abs(d), dim=(-2, -1))
+              + torch.sum(torch.abs(g), dim=-1))
+        return PerformanceIndex(
+            merit=cost + 10.0 * l1, cost=cost,
+            dyn_violation_sse=torch.sum(d * d, dim=(-2, -1)),
+            eq_constraint_sse=torch.sum(g * g, dim=-1),
+            ineq_constraint_sse=torch.zeros_like(cost))
+
+    return (linearize, performance, x0.expand(N + 1, 2).clone(),
+            torch.zeros((N, 2), **kw))
