@@ -24,8 +24,8 @@ the condensed backend and the scenario mesh:
                             (``qp_backend='condensed'``, plain torch)
 - ``ops.cuda_ipm_riccati``  the whole IPM of one problem as one CUDA kernel
 - ``ops.cuda_ipm_batch``    the same kernel over a batch (one block/problem,
-                            stage equalities allowed), and the dispatch over
-                            all four kernels
+                            stage equalities and C/D per problem allowed),
+                            and the dispatch over all four kernels
 - ``ops.cuda_eq_riccati``   the exact equality-constrained Riccati solve of
                             one problem as one CUDA kernel
 - ``ops.cuda_eq_batch``     the same kernel over a batch

@@ -17,7 +17,7 @@ What differs from the JAX package:
   dtype);
 - a scenario batch is a leading dimension of the inputs, not a ``vmap``;
   the pyramid matrices C/D are built once per config without a batch
-  dimension, which is what the fleet kernel takes;
+  dimension, so the fleet kernel reads one copy for the whole batch;
 - the solver is one CUDA graph per call signature
   (``utils.cuda_graph.graphed``), the counterpart of ``jax.jit``.
 """

@@ -28,10 +28,13 @@ Source note.
   per SM (at N=67, nx=nu=24 the iterate and work arrays fill an SM's shared
   memory), so problem i runs K1's instructions on problem i.
 
-Scope (the centroidal fleet, the convex SRB MPC's scenario batch and the
-batched legged pyramid mode): inequality-constrained f32 problems whose
-constraint matrices C/D are shared by the batch, with or without masked
-stage equalities, which may differ from problem to problem. Riccati gains
+Scope (the centroidal fleet, the convex SRB MPC's scenario batch, the
+batched legged pyramid mode and the projected mode's reduced batch):
+inequality-constrained f32 problems, with or without masked stage
+equalities. Every input, the constraint matrices C/D included, is either
+shared by the batch or the problem's own (a block reads each input through
+its own per-problem stride; the Pallas kernel takes shared C/D only, and
+the JAX package falls back to a vmapped scan for the rest). Riccati gains
 are not produced (the fleet path consumes trajectories only); the returned
 gains are NaN so that consuming them by accident is loud. What is out of
 scope raises with the reason — it is never solved silently by another
@@ -60,10 +63,6 @@ def out_of_scope_reason(data: OcpQpData) -> Optional[str]:
     """Why a batched problem cannot go to the fleet kernel, or None."""
     if data.con is None:
         return "the problem has no inequality rows (data.con is None)"
-    if data.con.C.dim() != 3 or data.con.D.dim() != 3:
-        return ("the constraint matrices con.C/con.D carry a batch "
-                "dimension; the fleet kernel takes one C/D shared by the "
-                "batch")
     if data.dx0.dim() != 2:
         return (f"dx0 has {data.dx0.dim() - 1} batch dimensions; the fleet "
                 "kernel takes exactly one")
@@ -96,10 +95,10 @@ def solve_ocp_qp_fleet_plain(data: OcpQpData,
 def solve_ocp_qp_fleet(data: OcpQpData,
                        settings: Optional[IpmSettings] = None
                        ) -> OcpQpSolution:
-    """Batched QP solve on batch-leading data: every tensor of ``data``
-    except ``con.C``/``con.D`` carries one leading batch dimension of any
-    size >= 1. See the module docstring for scope; the gains of the result
-    are NaN by design.
+    """Batched QP solve on batch-leading data: ``dx0`` carries one leading
+    batch dimension of any size >= 1, every other tensor of ``data`` the
+    same or none (shared by the batch). See the module docstring for scope;
+    the gains of the result are NaN by design.
 
     CUDA tensors go through the kernel (float32 only, anything else
     raises); CPU tensors through the plain version. The launch counter
@@ -169,10 +168,11 @@ def make_fleet_qp_solver(
     batched one. With neither (the reduced problem of a projected solve
     without inequality rows), the same equality-Riccati kernels on the
     problem with one all-masked equality row
-    (:func:`with_masked_equality_row`). A problem outside its kernel's scope
-    raises ``NotImplementedError`` naming the reason — for example a batch
-    whose inequality matrices C/D differ from problem to problem; the JAX
-    package falls back to a vmapped scan there, the port does not."""
+    (:func:`with_masked_equality_row`). Inequality matrices C/D of their own
+    per problem (the projected mode's reduced rows, where the equalities
+    differ between problems) go to the fleet kernel as well; the JAX
+    package falls back to a vmapped scan there. A problem outside its
+    kernel's scope raises ``NotImplementedError`` naming the reason."""
     from cheeta_mpc_tpu_torch.ops.cuda_eq_batch import solve_eq_lqr_fleet
     from cheeta_mpc_tpu_torch.ops.cuda_eq_riccati import (EQ_EPS,
                                                           solve_eq_lqr_kernel)

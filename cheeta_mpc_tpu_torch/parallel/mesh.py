@@ -41,13 +41,12 @@ class Mesh:
     of one process included)."""
 
     devices: tuple
-    axis_name: str = "batch"
     process_count: int = 1
     process_index: int = 0
     distributed: bool = False
 
 
-def make_mesh(n_devices: Optional[int] = None, axis_name: str = "batch",
+def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the first ``n_devices`` of ``devices`` (default: every
     card of this process, ``torch.cuda.device_count()``; without a card
@@ -59,7 +58,7 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "batch",
     devs = tuple(resolve_device(d) for d in devices)
     if n_devices is not None:
         devs = devs[:n_devices]
-    return Mesh(devs, axis_name)
+    return Mesh(devs)
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -91,14 +90,14 @@ def _process_device() -> torch.device:
     return torch.device("cpu")
 
 
-def make_global_mesh(axis_name: str = "batch") -> Mesh:
+def make_global_mesh() -> Mesh:
     """1-D mesh over the processes of the group (after
     :func:`initialize_distributed`), each process with its device: its
     current card under nccl, the CPU under gloo. Without a process group
     it is this process alone."""
     if not dist.is_initialized():
-        return Mesh((_process_device(),), axis_name)
-    return Mesh((_process_device(),), axis_name, dist.get_world_size(),
+        return Mesh((_process_device(),))
+    return Mesh((_process_device(),), dist.get_world_size(),
                 dist.get_rank(), distributed=True)
 
 
@@ -126,14 +125,14 @@ def _leaves(tree) -> list:
     return out
 
 
-def shard_batch(mesh: Mesh, tree, axis_name: str = "batch") -> list:
+def shard_batch(mesh: Mesh, tree) -> list:
     """One copy of ``tree`` per device of ``mesh``, each holding its slice
     of the leading (batch) axis of every array, on its device. The batch
     must divide evenly over the devices."""
     n = len(mesh.devices)
     sizes = {int(a.shape[0]) for a in _leaves(tree)}
     if len(sizes) != 1 or next(iter(sizes)) % n:
-        raise ValueError(f"{axis_name}: leading dims {sorted(sizes)} do not "
+        raise ValueError(f"batch: leading dims {sorted(sizes)} do not "
                          f"split evenly over {n} device(s)")
     per = next(iter(sizes)) // n
     return [_map(lambda a, i=i, d=d: torch.as_tensor(
@@ -150,8 +149,7 @@ def _concat(parts: list, device):
     return _map(lambda _: next(joined), parts[0])
 
 
-def sharded_batch_solver(build: Callable, mesh: Mesh,
-                         axis_name: str = "batch") -> Callable:
+def sharded_batch_solver(build: Callable, mesh: Mesh) -> Callable:
     """A batch solver over ``mesh``: ``build(device)`` returns the solver of
     one device (for example ``lambda d: build_convex_mpc(cfg, ipm,
     device=d)``, one CUDA graph per signature on its card), built once per
@@ -163,14 +161,14 @@ def sharded_batch_solver(build: Callable, mesh: Mesh,
     solvers = [build(d) for d in mesh.devices]
 
     def fn(*args):
-        shards = shard_batch(mesh, tuple(args), axis_name)
+        shards = shard_batch(mesh, tuple(args))
         outs = [solve(*shard) for solve, shard in zip(solvers, shards)]
         return _concat(outs, mesh.devices[0])
 
     return fn
 
 
-def host_local_batch_to_global(mesh: Mesh, tree, axis_name: str = "batch"):
+def host_local_batch_to_global(mesh: Mesh, tree):
     """Assemble the global batch from every process's local rows (each
     process supplies batch/process_count rows, in process order): one
     ``all_gather`` per array, on the process's device. The multi-host feed
@@ -204,8 +202,8 @@ class FleetHealth(NamedTuple):
     merit_mean: torch.Tensor  # mean merit (fleet objective health)
 
 
-def aggregate_fleet_health(mesh: Mesh, qp_mu, convergence, merit,
-                           axis_name: str = "batch") -> FleetHealth:
+def aggregate_fleet_health(mesh: Mesh, qp_mu, convergence,
+                           merit) -> FleetHealth:
     """Reduce per-element solver health over the whole fleet.
 
     Args are batch-leading arrays (the ``ScpResult`` / ``CentroidalSolution``

@@ -182,7 +182,14 @@ PYRAMID_FLEET_SOLVES = 20  # host-clock graphed solves per batch
 SRB_PARAMS = dict(mass=9.0, inertia=(0.07, 0.26, 0.24), mu=0.5, fz_max=250.0)
 CONVEX_HORIZON, CONVEX_DT, CONVEX_FLEET = 10, 0.03, 4096
 CONVEX_IPM_ITERS, CONVEX_MU_TOL = 12, 1e-6
-CONVEX_F64_ROWS = 256  # fleet scenarios held against the f64 CPU solve
+CONVEX_F64_ROWS = 256  # fleet scenarios held against the f64 CPU solve,
+# spread evenly over the batch's height band
+# An off-centre CoM (m, in x and y from the feet's centre) for the readings
+# that are not gated: the entry point at its shipped IpmSettings(iters=12)
+# (f32 freeze at mu < 1e-4) and the off-centre trot, each against the f64
+# CPU solve (ROADMAP queue 3). On the CPU with the plain versions: 7.4 N
+# standing and 1.4 N trot at the default, 0.67 N off-centre trot at 1e-6.
+CONVEX_OFF_CENTRE = (0.03, -0.02)
 CONVEX_MG_RTOL = 0.02
 # The circular-kinematics OCP (tests/torch_port_util.py) in both equality
 # modes, f32 on the card: 25 SQP iterations of one K3 launch each. Measured
@@ -1020,6 +1027,33 @@ def kernel_row(launch, plain, data, out, flops, what) -> dict:
             "what": what}
 
 
+def check_per_problem_cd(kit, qp, sk, ipm, what) -> dict:
+    """K2 on ``qp`` with inequality matrices C/D of their own per problem,
+    as the projected mode's reduced rows carry the batch of its equalities:
+    a copy of the shared C/D per problem gives ``sk``, the launch on the
+    shared C/D, bit for bit, and rows scaled by a factor of their own per
+    problem (0.9 to 1.1) agree with the plain version at the kernel's
+    tolerances."""
+    con, batch = qp.con, qp.dx0.shape[0]
+
+    def own(scale):
+        return contig(qp.replace(con=con.replace(
+            C=con.C.expand((batch,) + con.C.shape) * scale,
+            D=con.D.expand((batch,) + con.D.shape) * scale)))
+
+    copies = kit.k2(own(1.0), ipm)
+    torch.cuda.synchronize()
+    names = ("dx", "du", "s_l", "s_u", "lam_l", "lam_u", "mu")
+    bit = all(torch.equal(getattr(copies, n), getattr(sk, n)) for n in names)
+    check(bit, f"{what}: K2 on a copy of C/D per problem differs from K2 on "
+          "the shared C/D")
+    scaled = own(torch.linspace(0.9, 1.1, batch,
+                                device=qp.dx0.device)[:, None, None, None])
+    err = compare_solutions(kit.k2(scaled, ipm), kit.k2_plain(scaled, ipm),
+                            False, f"{what}, C/D scaled per problem")
+    return {"copies_equal_shared": bit, "scaled_k2_vs_plain": err}
+
+
 def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
                         lcfg_pyr, lmany_np):
     """The batched legged pyramid mode (N=67, 16 stage equalities and 20
@@ -1037,6 +1071,9 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
         err = compare_solutions(sk, pk, False,
                                 f"K2 with stage equalities, batch {batch}")
         check(bool(torch.isnan(sk.gains.K).all()), "K2 must return NaN gains")
+        if batch == LEGGED_FLEET_SMALL:
+            report["per_problem_cd"] = check_per_problem_cd(
+                kit, qp, sk, ipm_pyr, f"pyramid fleet {batch}")
         tr, sol = kit.graphed_run(f"legged pyramid fleet {batch}",
                                   lambda: glsolver_pyr(*args_np),
                                   [0, 1, 0, 0])
@@ -1087,13 +1124,15 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
     return report, row
 
 
-def convex_scenarios(batch: int, gait: str):
+def convex_scenarios(batch: int, gait: str, off_centre: bool = False):
     """``batch`` standing references (each CoM held where it starts, over
-    the feet's centre, at heights spread over [0.28, 0.32] m; one scenario
-    at the nominal 0.3 m), the nominal feet and the gait's contact
-    table."""
+    the feet's centre or ``CONVEX_OFF_CENTRE`` from it, at heights spread
+    over [0.28, 0.32] m; one scenario at the nominal 0.3 m), the nominal
+    feet and the gait's contact table."""
     from cheeta_mpc_tpu_torch.examples import NOMINAL_FEET, trot_table
     x0 = np.zeros((batch, 13))
+    if off_centre:
+        x0[:, 3:5] = CONVEX_OFF_CENTRE
     x0[:, 5] = 0.3 if batch == 1 else np.linspace(0.28, 0.32, batch)
     x0[:, 12] = 1.0
     ref = np.repeat(x0[:, None, :], CONVEX_HORIZON + 1, axis=1)
@@ -1117,6 +1156,17 @@ def phase_convex_mpc(dev, card, kit):
                                IpmSettings(iters=CONVEX_IPM_ITERS),
                                device="cpu")
     mg = params.mass * GRAVITY
+
+    def err_vs_f64(f, args):
+        """Max |f - f64| over the batch-1 scenario, or over
+        ``CONVEX_F64_ROWS`` scenarios spread evenly over a fleet."""
+        if args[0].ndim == 1:
+            return max_abs(f.cpu(), solve64(*args)[0])
+        idx = np.linspace(0, len(args[0]) - 1, CONVEX_F64_ROWS).round()
+        idx = idx.astype(int)
+        f64, _ = solve64(args[0][idx], args[1][idx], *args[2:])
+        return max_abs(f[torch.as_tensor(idx, device=f.device)].cpu(), f64)
+
     report = {"phase": "convex_mpc", "card": card, "mg": mg,
               "ipm": ipm._asdict(), "tolerance_f64": TOL_GRF}
     inputs = {}
@@ -1148,17 +1198,38 @@ def phase_convex_mpc(dev, card, kit):
             if gait == "stance":
                 check(mg_err <= CONVEX_MG_RTOL,
                       f"{what}: total Fz leaves m g by {mg_err:.2%}")
-            rows = min(batch, CONVEX_F64_ROWS)
-            f64, _ = solve64(*((args[0][:rows], args[1][:rows]) + args[2:])
-                             if batch > 1 else args)
-            f64_err = max_abs(f[:rows].cpu() if batch > 1 else f.cpu(), f64)
+            f64_err = err_vs_f64(f, args)
             check(f64_err <= TOL_GRF, f"{what}: forces differ from the f64 "
                   f"CPU solve by {f64_err} N")
             report[f"{gait}_batch{batch}"] = {
                 "replay": tr, "launches": tr["kernels"][:2],
                 "outside_pyramid": viol, "fz_vs_mg_rel_max": mg_err,
-                "force_err_vs_f64_cpu": f64_err, "f64_rows": rows,
+                "force_err_vs_f64_cpu": f64_err,
+                "f64_rows": min(batch, CONVEX_F64_ROWS),
                 "qp_mu_max": float(sol.mu.max())}
+    # Readings, not gated (ROADMAP queue 3): the entry point as it ships,
+    # IpmSettings(iters=12), on the gated scenarios, and the off-centre trot
+    # at both settings, each against the f64 CPU solve.
+    readings = {}
+    for name, ipm_r in (("default", IpmSettings(iters=CONVEX_IPM_ITERS)),
+                        ("mu_tol_1e-6", ipm)):
+        solve_r = build_convex_mpc(cfg, ipm_r, device=dev)
+        solve_r = getattr(solve_r, "__wrapped__", solve_r)
+        for gait, off in (("stance", False), ("trot", False), ("trot", True)):
+            if name != "default" and not off:
+                continue
+            for batch in (1, CONVEX_FLEET):
+                x0, ref, feet, enable = convex_scenarios(batch, gait, off)
+                args = ((x0[0], ref[0], feet, enable) if batch == 1
+                        else (x0, ref, feet, enable))
+                f, _ = solve_r(*args)
+                what = (f"convex {gait}{' off-centre' if off else ''}, "
+                        f"batch {batch}, {name}")
+                check(bool(torch.isfinite(f).all()),
+                      f"{what}: forces not finite")
+                key = f"{gait}{'_off_centre' if off else ''}_batch{batch}"
+                readings.setdefault(name, {})[key] = err_vs_f64(f, args)
+    report["force_err_vs_f64_cpu_not_gated"] = readings
     # Each kernel against its plain version on the trot QPs, and its time.
     rows = {}
     for batch, kern, plain, gains in (
@@ -1176,6 +1247,9 @@ def phase_convex_mpc(dev, card, kit):
                          qp, out, flops, f"SRB QP, batch {batch}")
         row["max_abs_err"] = max(err["dx"], err["du"])
         row["vs_plain"] = err
+        if batch > 1:
+            report["per_problem_cd"] = check_per_problem_cd(
+                kit, qp, sk, ipm, f"SRB QP, batch {batch}")
         entry = kit.single_mod.FLEET_ENTRY if batch > 1 else \
             "cheeta_ipm_riccati_single"
         row["occupancy"] = kit.single_mod.launch_occupancy(entry, qp, ipm)
@@ -1293,8 +1367,8 @@ def phase_mesh(dev, card, kit, convex, solf):
     tr, (f, _) = kit.graphed_run("sharded convex fleet",
                                  lambda: sharded(*args), [0, 1, 0, 0])
     diff = max_abs(f, unsharded)
-    check(diff <= 1e-6, f"the sharded convex fleet differs from the "
-          f"unsharded solve by {diff} N")
+    check(torch.equal(f, unsharded), f"the sharded convex fleet differs "
+          f"from the unsharded solve by {diff} N")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -1326,7 +1400,6 @@ def phase_mesh(dev, card, kit, convex, solf):
     return {"phase": "mesh", "card": card, "devices": len(mesh.devices),
             "batch": int(f.shape[0]), "replay": tr,
             "sharded_vs_unsharded_max_abs": diff,
-            "sharded_equals_unsharded": torch.equal(f, unsharded),
             "fleet_health": got,
             "health_of": f"centroidal fleet of {FLEET}"}
 
@@ -1670,13 +1743,8 @@ def main() -> int:
     check(bool(torch.isfinite(psol.gains_K).all()),
           f"legged pyramid: non-finite gains after {PYRAMID_IPM_ITERS} IPM "
           "iterations")
-    f_st = psol.forces
-    mu_f = lcfg_pyr.friction_mu
-    outside = torch.stack([
-        f_st[..., 0].abs() - mu_f * f_st[..., 2],
-        f_st[..., 1].abs() - mu_f * f_st[..., 2],
-        -f_st[..., 2], f_st[..., 2] - lcfg_pyr.force_max]).amax(dim=0)
-    pyr_viol = float((outside * enable1).max())
+    pyr_viol = pyramid_violation(psol.forces, enable1, lcfg_pyr.friction_mu,
+                                 lcfg_pyr.force_max)
     check(pyr_viol <= TOL_PYRAMID,
           f"legged pyramid: a stance force leaves the pyramid by "
           f"{pyr_viol} N")
@@ -2056,12 +2124,8 @@ def main() -> int:
                                          f"solve {i}")
             fz_range = [min(fz_range[0], lo), max(fz_range[1], hi)]
             if mode == "pyramid":
-                f = sol.forces
-                outside = torch.stack([
-                    f[..., 0].abs() - ncfg.friction_mu * f[..., 2],
-                    f[..., 1].abs() - ncfg.friction_mu * f[..., 2],
-                    -f[..., 2], f[..., 2] - ncfg.force_max]).amax(dim=0)
-                pyr_viol = max(pyr_viol, float((outside * en).max()))
+                pyr_viol = max(pyr_viol, pyramid_violation(
+                    sol.forces, en, ncfg.friction_mu, ncfg.force_max))
         check(pyr_viol <= TOL_PYRAMID,
               f"legged node ({mode}): a stance force leaves the pyramid by "
               f"{pyr_viol} N")

@@ -275,8 +275,10 @@ def test_k2_plain_matches_k1_plain_element_by_element(dtype, tol):
 
 
 def test_make_fleet_qp_solver_dispatch_and_scope():
-    """Unbatched -> K1 (real gains); batched -> K2 (NaN gains); what the
-    fleet kernel does not take raises with the reason."""
+    """Unbatched -> K1 (real gains); batched -> K2 (NaN gains), with C/D
+    shared by the batch or each problem's own (a copy per problem gives the
+    shared solve to 1e-6, f32); what the fleet kernel does not take raises
+    with the reason."""
     _, shared = _shared_cd_batch(53, batch=2)
     solve = tb.make_fleet_qp_solver(IpmSettings(iters=6))
     fleet = solve(shared)
@@ -285,9 +287,12 @@ def test_make_fleet_qp_solver_dispatch_and_scope():
     single = solve(one)
     assert torch.isfinite(single.gains.K).all() and single.du.dim() == 2
     per_problem_cd = shared.replace(con=shared.con.replace(
-        C=shared.con.C.expand(2, -1, -1, -1).contiguous()))
-    with pytest.raises(NotImplementedError, match="shared by the batch"):
-        solve(per_problem_cd)
+        C=shared.con.C.expand(2, -1, -1, -1).contiguous(),
+        D=shared.con.D.expand(2, -1, -1, -1).contiguous()))
+    own = solve(per_problem_cd)
+    assert torch.isnan(own.gains.K).all()
+    for name in ("dx", "du"):
+        assert max_err(getattr(own, name), getattr(fleet, name)) <= 1e-6
     with pytest.raises(NotImplementedError, match="no inequality rows"):
         tb.solve_ocp_qp_fleet(shared.replace(con=None))
     with pytest.raises(ValueError, match="inequality rows"):

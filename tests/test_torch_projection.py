@@ -8,7 +8,9 @@ equalities, ``eq_mode='projected'``) against the JAX package.
 - The two QP cases of tests/test_circular_kinematics.py: projected against
   the eq-Riccati elimination on an equality-only QP, and projected against
   the full interior-point solve with inequality rows; each against the JAX
-  package's result (1e-8 and 1e-7).
+  package's result (1e-8 and 1e-7); a batch of the latter whose equalities
+  differ from problem to problem, through the fleet kernel's plain version
+  with C/D per problem, against ``jax.vmap`` of the JAX package's (1e-6).
 - The circular-kinematics OCP through the SQP in both equality modes, f64,
   against the JAX package's projected-mode solve (1e-9 the same mode, 1e-6
   the other: the reference's agreement criterion), and
@@ -135,6 +137,40 @@ def test_projected_matches_ipm_with_inequalities():
     # rows): the same solve to 1e-6.
     kern = tp.solve_ocp_qp_projected(td, st)
     assert max_err(kern.du, proj.du) <= 1e-6
+
+
+def _with_inequalities(seed):
+    """``test_projected_matches_ipm_with_inequalities``'s problem, from
+    ``seed``: full-rank equalities and two inequality rows per stage."""
+    data = _full_rank_eq_problem(seed, N=5, nx=4, nu=3, nc=1)
+    eq_sol = jsolve_eq_lqr(data)
+    ref = (np.asarray(eq_sol.dx), np.asarray(eq_sol.du))
+    rng = np.random.default_rng(seed + 4)
+    return add_random_constraints(rng, data.replace(eq=None), ng=2,
+                                  tight=0.8, ref=ref).replace(eq=data.eq)
+
+
+def test_projected_batch_with_inequalities():
+    """A batch whose equalities differ from problem to problem: the reduced
+    inequality rows C + D Px, D Pu then carry the batch, and the default
+    inner solve sends them to the fleet interior-point kernel (its plain
+    version here) with C/D of their own per problem. Against ``jax.vmap``
+    of the JAX package's projected solve (1e-6, the bound of the kernel
+    dispatch against the scan solver above), and each element against its
+    batch-1 projected solve (K1's plain version; 1e-9, f64)."""
+    probs = [_with_inequalities(seed) for seed in (7, 8, 9)]
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *probs)
+    ref = jax.jit(jax.vmap(lambda d: jp.solve_ocp_qp_projected(
+        d, JIpm(iters=30))))(stacked)
+    st = IpmSettings(iters=30)
+    sol = tp.solve_ocp_qp_projected(qp_data_to_torch(stacked), st)
+    assert bool(torch.isnan(sol.gains.K).all())
+    for name in ("dx", "du"):
+        assert max_err(getattr(sol, name), getattr(ref, name)) <= 1e-6
+    for i, prob in enumerate(probs):
+        one = tp.solve_ocp_qp_projected(qp_data_to_torch(prob), st)
+        assert max_err(sol.du[i], one.du) <= 1e-9
+        assert max_err(sol.dx[i], one.dx) <= 1e-9
 
 
 # ---- the nonlinear circular-kinematics OCP through the SQP ----------------
