@@ -7,11 +7,12 @@ one CUDA graph per call signature in place of ``jit``, and hand-written
 CUDA kernels (``csrc/``, built by ``native/build.py`` at first launch) in
 place of the Pallas kernels.
 
-Ported: everything the JAX package does apart from its benchmark
-(``bench.py``, ``utils/device_timing.py``) — the centroidal MPC main path,
-the legged SRBD MPC, the real-time planning path on top of them, the
+Ported: everything the JAX package does apart from its earlier benchmark
+script (``bench.py``, not a module of the package) — the centroidal MPC main
+path, the legged SRBD MPC, the real-time planning path on top of them, the
 deployed runtime around it, the convex SRB MPC, the second equality mode,
-the condensed backend and the scenario mesh:
+the condensed backend, the scenario mesh and the device timing with the
+work counts:
 
 - ``core.types``            problem/solution containers
 - ``ops.linalg_small``      SPD inverse of the torch executor
@@ -60,6 +61,15 @@ the condensed backend and the scenario mesh:
                             the MPC/MRT runtime, config files and timers
                             (numpy copies)
 - ``utils.cuda_graph``      ``graphed``: one CUDA graph per call signature
+- ``utils.device_timing``   device seconds per call by the slope over chained
+                            CUDA-graph replays (``device_time_per_call``),
+                            the JAX package's work counts of a solve (for
+                            ``mfu_pct``) and the kernels' own (for bounds):
+
+                              solve = build_legged_solver(cfg)  # eager
+                              args = tuple(torch.as_tensor(a, device="cuda")
+                                           for a in inputs)
+                              seconds = device_time_per_call(solve, args)
 - ``parallel.mesh``         scenario batches over devices and processes
                             (``torch.distributed``: gloo on the CPU, nccl on
                             the cards)

@@ -23,6 +23,8 @@ node in the lock-step dummy loop (``legged_node``). Then the last slice of
 the port: the batched legged pyramid mode at batch 128 and 512 through K2
 with stage equalities (``pyramid_fleet``), the convex SRB MPC at one
 scenario (K1) and 4096 (K2), standing and trot (``convex_mpc``), the
+device time per solve of eight of those paths by the slope over chained
+CUDA-graph replays (``device_timing``, ``utils/device_timing.py``), the
 circular-kinematics OCP in both equality modes and the centroidal MPC under
 the condensed backend (``projected_condensed``), and the convex fleet
 sharded over ``parallel.mesh.make_mesh`` with the fleet's health reduced
@@ -44,9 +46,9 @@ processes, each in a process group of its own that it waits for or kills.
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -56,15 +58,14 @@ import tempfile
 import time
 import types
 import warnings
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and f32
-# FLOP/s outside the tensor cores. The bound of a kernel is the larger of
-# bytes / HBM_BYTES_PER_S and operations / F32_FLOPS.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+from cheeta_mpc_tpu_torch.utils.device_timing import (
+    F32_FLOPS, HBM_BYTES_PER_S, bound, centroidal_solve_flops, eq_flops,
+    ipm_flops, tensors_of, time_chain)
 
 HORIZON = 10
 FLEET = 1024
@@ -199,6 +200,14 @@ CIRCLE_ALPHAS = (1.0, 0.5, 0.25, 0.125, 1 / 16, 1 / 32, 1 / 64)
 TOL_CIRCLE_MODES = 1e-4
 TOL_CIRCLE_F64 = 1e-3  # against the f64 CPU solve (tests/test_torch_projection.py)
 CONDENSED_SOLVES = 50  # host-clock graphed solves per backend and batch
+# Device time per solve by the slope over chained CUDA-graph replays
+# (utils/device_timing.py): solves per chain at batch 1 and for fleets, as
+# the JAX package's benchmark chains them. A solve's device time is at most
+# its graphed host p50 (which adds input copies, the graph launch and the
+# host read) and at least the time of its kernel launches by CUDA events;
+# the margins leave room for the host clock's spread.
+CHAIN_BATCH1, CHAIN_FLEET = (4, 20), (2, 8)
+SLOPE_OVER_P50, SLOPE_UNDER_KERNELS = 1.05, 0.9
 
 
 def emit(obj) -> None:
@@ -233,6 +242,26 @@ def median_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def events_ms(fn, n: int = 5) -> float:
+    """Device ms per ``fn()`` by CUDA events around one replay of a CUDA
+    graph of ``n`` calls, captured after a warm-up call: the host's work
+    for a call (which can outlast a short kernel) is not timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def wall_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
     """Median host time of ``fn()`` ending in a synchronize, in ms."""
     for _ in range(warmup):
@@ -245,82 +274,6 @@ def wall_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
-
-
-def ipm_flops(N, nx, nu, ng, nc, iters) -> float:
-    """f32 operations (2 per multiply-add) of one fixed-iteration solve,
-    counted from the shapes: per iteration one residual pass, one
-    factorization, two Newton passes and one stationarity pass."""
-
-    def inv(n):  # Gauss-Jordan on an n x 2n augmented matrix
-        return 2.0 * n * n * (n + 1)
-
-    grads = ((N + 1) * 2 * nx * (nx + ng)
-             + N * 2 * nu * (2 * nx + nu + ng))
-    residuals = ((N + 1) * 2 * ng * nx + N * 2 * ng * nu
-                 + N * 2 * nx * (nx + nu) + N * 2 * nc * (nx + nu))
-    stage = (2 * nx ** 3 + 2 * nx * nx * nu  # P A, P B
-             + 2 * nu * nu * (ng + nx) + 2 * nu * nx * (ng + nx)  # G, H
-             + 2 * nx * nx * (ng + nx) + inv(nu)  # Q + A'PA, G^-1
-             + 2 * nu * nu * nx + 2 * nx * nx * nu)  # K, P += H'K
-    if nc:
-        stage += (4 * nu * nu * nc + 4 * nu * nc * nc + inv(nc)
-                  + 4 * nc * nu * nx + 2 * nc * nc * nx + 2 * nx * nx * nc)
-    factorize = N * stage + 2 * nx * nx * ng + N * 2 * nx * nx
-    back = 2 * nx * nu + 2 * nu * nu + 2 * nx * nx + 2 * nu * nx
-    if nc:
-        back += 4 * nu * nc + 2 * nc * nc + 2 * nc * nx
-    fwd = 4 * nu * nx + 2 * nx * nx
-    newton = (grads + N * (back + fwd) + (N + 1) * 2 * ng * nx
-              + N * 2 * ng * nu + 30 * (N + 1) * ng)
-    stat = grads + N * (2 * nx * nu + 2 * nx * nx + 2 * nc * (2 * nu + nx))
-    lid = N * (2 * nc * nc * nu * 2 + inv(nc)) if nc else 0
-    return float(lid + stat
-                 + iters * (residuals + factorize + 2 * newton + stat))
-
-
-def eq_flops(N, nx, nu, nc) -> float:
-    """f32 operations (2 per multiply-add) of one equality-constrained
-    Riccati solve, counted from the shapes: factorization, vector pass and
-    rollout."""
-
-    def inv(n):
-        return 2.0 * n * n * (n + 1)
-
-    stage = (4 * nx ** 3 + 2 * nx * nx * nu  # P A, A'PA, P B
-             + 2 * nu * nu * nx + 2 * nu * nx * nx + inv(nu)  # G, H, G^-1
-             + 4 * nu * nu * nc + 4 * nu * nc * nc + inv(nc)  # Y, Lam, YLi, W
-             + 4 * nc * nu * nx + 2 * nu * nu * nx + 2 * nc * nc * nx  # T, K
-             + 2 * nx * nx * (nu + nc))  # P += H'K + C'T2
-    vec = (4 * nx * nx + 2 * nx * nu + 2 * nu * nu + 4 * nu * nc
-           + 2 * nc * nc + 2 * nu * nx + 2 * nc * nx)
-    fwd = 4 * nu * nx + 2 * nx * nx
-    return float(N * (stage + vec + fwd))
-
-
-def tensors_of(obj):
-    """Every tensor of a (nested) container dataclass."""
-    if obj is None:
-        return []
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if dataclasses.is_dataclass(obj):
-        out = []
-        for f in dataclasses.fields(obj):
-            out += tensors_of(getattr(obj, f.name))
-        return out
-    return []
-
-
-def bound(data, out_tensors, flops: float):
-    """(bound_ms, bound_by), bytes: every input read once, every output
-    written once, and ``flops`` operations, at the card's peaks."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors_of(data))
-    nbytes += sum(t.numel() * t.element_size() for t in out_tensors)
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOPS
-    return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"),
-            nbytes)
 
 
 def random_qp(seed: int, device, N=12, nx=12, nu=8, ng=6, nc=3):
@@ -1125,10 +1078,11 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
 
 
 def convex_scenarios(batch: int, gait: str, off_centre: bool = False):
-    """``batch`` standing references (each CoM held where it starts, over
-    the feet's centre or ``CONVEX_OFF_CENTRE`` from it, at heights spread
-    over [0.28, 0.32] m; one scenario at the nominal 0.3 m), the nominal
-    feet and the gait's contact table."""
+    """The solver's inputs: ``batch`` standing references (each CoM held
+    where it starts, over the feet's centre or ``CONVEX_OFF_CENTRE`` from
+    it, at heights spread over [0.28, 0.32] m; one scenario, without a
+    batch dimension, at the nominal 0.3 m), the nominal feet and the gait's
+    contact table."""
     from cheeta_mpc_tpu_torch.examples import NOMINAL_FEET, trot_table
     x0 = np.zeros((batch, 13))
     if off_centre:
@@ -1138,6 +1092,8 @@ def convex_scenarios(batch: int, gait: str, off_centre: bool = False):
     ref = np.repeat(x0[:, None, :], CONVEX_HORIZON + 1, axis=1)
     enable = (np.ones((CONVEX_HORIZON, 4)) if gait == "stance"
               else trot_table(CONVEX_HORIZON))
+    if batch == 1:
+        return x0[0], ref[0], NOMINAL_FEET, enable
     return x0, ref, NOMINAL_FEET, enable
 
 
@@ -1175,9 +1131,7 @@ def phase_convex_mpc(dev, card, kit):
         # graphs (the contact table is an input of the same shape).
         solve = build_convex_mpc(cfg, ipm, device=dev)
         for batch in (1, CONVEX_FLEET):
-            x0, ref, feet, enable = convex_scenarios(batch, gait)
-            args = ((x0[0], ref[0], feet, enable) if batch == 1
-                    else (x0, ref, feet, enable))
+            args = convex_scenarios(batch, gait)
             inputs[gait, batch] = args
             what = f"convex {gait}, batch {batch}"
             want = [1, 0, 0, 0] if batch == 1 else [0, 1, 0, 0]
@@ -1186,7 +1140,7 @@ def phase_convex_mpc(dev, card, kit):
             torch.cuda.synchronize()
             check(torch.equal(f, f_e), f"{what}: graphed and eager differ")
             check(bool(torch.isfinite(f).all()), f"{what}: forces not finite")
-            on = torch.as_tensor(enable, dtype=f.dtype, device=dev)
+            on = torch.as_tensor(args[3], dtype=f.dtype, device=dev)
             swing = f.masked_select((on == 0)[..., None].expand_as(f))
             check(bool((swing == 0).all()),
                   f"{what}: swing-leg forces are not exactly 0")
@@ -1219,9 +1173,7 @@ def phase_convex_mpc(dev, card, kit):
             if name != "default" and not off:
                 continue
             for batch in (1, CONVEX_FLEET):
-                x0, ref, feet, enable = convex_scenarios(batch, gait, off)
-                args = ((x0[0], ref[0], feet, enable) if batch == 1
-                        else (x0, ref, feet, enable))
+                args = convex_scenarios(batch, gait, off)
                 f, _ = solve_r(*args)
                 what = (f"convex {gait}{' off-centre' if off else ''}, "
                         f"batch {batch}, {name}")
@@ -1263,7 +1215,89 @@ def phase_convex_mpc(dev, card, kit):
             "p50_within_20ms": wall["p50"] <= BUDGET_MS,
             "p99_within_30ms": wall["p99"] <= BUDGET_P99_MS})
     report["kernels"] = rows
-    return report, rows, (cfg, ipm)
+    return report, rows, (cfg, ipm), solve
+
+
+class TimedPath(NamedTuple):
+    """One path of phase ``device_timing`` and this run's other readings
+    of it."""
+
+    name: str
+    eager: Callable  # the eager solve, chained into CUDA graphs
+    args: tuple  # its inputs as CUDA tensors
+    graphed: Callable  # one graphed solve on the same inputs
+    out: Callable  # solve result -> the forces compared
+    batch: int
+    want: list  # K1..K4 launches per solve
+    kernel: Callable  # one of those launches, on the path's first QP
+    host_p50_ms: float  # graphed host p50
+    replay_device_ms: float  # device ms summed over a profiled replay
+    tol: float  # the kernel's tolerance against its plain version
+    flops: Optional[float] = None  # centroidal_solve_flops, for mfu_pct
+
+
+def phase_device_timing(dev, card, kit, paths) -> dict:
+    """Device ms per solve of each path by the slope over chained CUDA-graph
+    replays (``utils.device_timing.time_chain``), beside its graphed host
+    p50 and its profiled replay's device ms from this run. Gated: the
+    slope is positive and finite; the host issued every timed chain call
+    in less time than the device ran it (so the device did not wait for
+    the launch, ``time_chain``); the slope is at most ``SLOPE_OVER_P50``
+    times the host p50 and at least ``SLOPE_UNDER_KERNELS`` times the device time of the
+    path's kernel launches per solve by CUDA events (``events_ms``); each
+    chain ran the path's kernels once per solve in its warm-up calls and
+    capture; the k_big chain's last solve equals one graphed solve on the
+    same inputs within the kernel's tolerance against its plain version
+    (the nudge changes nothing a solve can see)."""
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS
+    t_start = time.perf_counter()
+    report = {"phase": "device_timing", "card": card,
+              "chain_solves": {"batch1": CHAIN_BATCH1, "fleet": CHAIN_FLEET}}
+    for p in paths:
+        k_small, k_big = CHAIN_BATCH1 if p.batch == 1 else CHAIN_FLEET
+        kernel_ms = sum(p.want) * events_ms(p.kernel)
+        kit.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time_chain(p.eager, p.args, k_small, k_big, device=dev)
+        want = [(WARMUP_CALLS + 1) * (k_small + k_big) * w for w in p.want]
+        check(kit.counts() == want,
+              f"{p.name}: the chains' warm-up calls and captures launched "
+              f"K1..K4 {kit.counts()}x; expected {want}")
+        ms = 1e3 * t.seconds
+        check(math.isfinite(ms) and ms > 0,
+              f"{p.name}: device time by slope {ms} ms")
+        for k in (k_small, k_big):
+            check(max(t.issue_s[k]) < min(t.chain_s[k]),
+                  f"{p.name}: the host took {max(t.issue_s[k])} s to issue "
+                  f"a chain of {k} that the device ran in "
+                  f"{min(t.chain_s[k])} s: the device waited for the host")
+        check(ms <= SLOPE_OVER_P50 * p.host_p50_ms,
+              f"{p.name}: device time by slope {ms} ms is above "
+              f"{SLOPE_OVER_P50} x the graphed host p50 {p.host_p50_ms} ms")
+        check(ms >= SLOPE_UNDER_KERNELS * kernel_ms,
+              f"{p.name}: device time by slope {ms} ms is below "
+              f"{SLOPE_UNDER_KERNELS} x its kernels' {kernel_ms} ms")
+        err = max_abs(p.out(t.output), p.out(p.graphed()))
+        check(err <= p.tol, f"{p.name}: the k_big chain's last solve differs "
+              f"from a graphed solve by {err}")
+        row = {"device_ms": ms, "slopes_ms": [1e3 * s for s in t.slopes],
+               "graphed_p50_ms": p.host_p50_ms,
+               "replay_device_ms": p.replay_device_ms,
+               "kernel_events_ms": kernel_ms, "k_small_big": [k_small, k_big],
+               "chain_ms": {k: [1e3 * x for x in v]
+                            for k, v in t.chain_s.items()},
+               "issue_ms": {k: [1e3 * x for x in v]
+                            for k, v in t.issue_s.items()},
+               "chain_vs_graphed_max_abs": err,
+               "chain_graphs": {k: {n: g[n] for n in ("nodes", "pool_bytes",
+                                                      "capture_s")}
+                                for k, g in t.graphs.items()},
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+        if p.flops is not None:
+            row["mfu_pct"] = 100.0 * p.batch * p.flops / t.seconds / F32_FLOPS
+        report[p.name] = row
+    report["seconds"] = time.perf_counter() - t_start
+    return report
 
 
 def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
@@ -2163,9 +2197,8 @@ def main() -> int:
           "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO),
           "seconds_simulated": NODE_MRT_DT * NODE_STEPS, **node_report})
 
-    # Phases 16-19: the batched legged pyramid mode (K2 with stage
-    # equalities), the convex SRB MPC (K1 and K2 at the SRB shape), the
-    # projected equality mode and the condensed backend, the scenario mesh.
+    # Phases 16-17: the batched legged pyramid mode (K2 with stage
+    # equalities), the convex SRB MPC (K1 and K2 at the SRB shape).
     kit = types.SimpleNamespace(
         k1=k1, k1_plain=k1_plain, k2=k2, k2_plain=k2_plain,
         single_mod=single_mod, graphed_run=graphed_run,
@@ -2174,13 +2207,77 @@ def main() -> int:
         dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr, lcfg_pyr,
         lmany_np)
     emit(pyr_report)
-    cvx_report, srb_rows, convex = phase_convex_mpc(dev, card, kit)
+    cvx_report, srb_rows, convex, cvx_solve = phase_convex_mpc(dev, card,
+                                                               kit)
     emit(cvx_report)
+
+    # Phase 18: device time per solve by the slope over chained CUDA-graph
+    # replays, on the five paths of phase 13, the pyramid fleet of 128 of
+    # phase 16 and the convex trot at 1 and 4096 of phase 17, each beside
+    # that phase's readings of the path. The DDP solve (one graph of
+    # ~160,000 nodes) is left out: a chain would be k times that.
+    def seen(entry):  # a path's graphed host p50 and replay device ms
+        return entry["graphed_ms"]["p50"], entry["replay"]["device_ms"]
+
+    def force(sol):
+        return sol.forces
+
+    cent_flops = centroidal_solve_flops(*shape_of(qp1), qp1.con.ng,
+                                        SQP_ITERS, IPM_ITERS)
+    lsmall_np = tuple(a[:LEGGED_FLEET_SMALL] for a in lmany_np.args)
+    qp_pyr_small = contig(lsolver_pyr.initial_qp(*lsmall))
+    cvx1, cvxf = (convex_scenarios(b, "trot") for b in (1, CONVEX_FLEET))
+    qp_cvx1, qp_cvxf = (contig(cvx_solve.initial_qp(*a)) for a in (cvx1, cvxf))
+    cvx_eager, cvx_ipm = cvx_solve.__wrapped__, convex[1]
+    paths = [
+        TimedPath("centroidal_batch1", solver, on_card(one),
+                  lambda: mpc.solver(*one), lambda s: s.contact_force, 1,
+                  [SQP_ITERS, 0, 0, 0], lambda: k1(qp1, ipm),
+                  *seen(graph_report["centroidal_batch1"]), TOL_PRIMAL,
+                  cent_flops),
+        TimedPath(f"centroidal_fleet{FLEET}", solver, on_card(many),
+                  lambda: mpc.solver(*many), lambda s: s.contact_force,
+                  FLEET, [0, SQP_ITERS, 0, 0], lambda: k2(qpf, ipm),
+                  *seen(graph_report[f"centroidal_fleet{FLEET}"]),
+                  TOL_PRIMAL, cent_flops),
+        TimedPath("legged_soft_batch1", lsolver, lone,
+                  lambda: glsolver(*lone_np.args), force, 1, [0, 0, 1, 0],
+                  lambda: k3(qpl, reg=leg_reg),
+                  *seen(graph_report["legged_soft_batch1"]), TOL_LEG_PLAIN),
+        TimedPath("legged_pyramid_batch1", lsolver_pyr, lone,
+                  lambda: glsolver_pyr(*lone_np.args), force, 1,
+                  [1, 0, 0, 0], lambda: k1(qpp, ipm_pyr),
+                  *seen(graph_report["legged_pyramid_batch1"]),
+                  TOL_LEG_PLAIN),
+        TimedPath(f"legged_fleet{LEGGED_FLEET}", lsolver, lmany,
+                  lambda: glsolver(*lmany_np.args), force, LEGGED_FLEET,
+                  [0, 0, 0, 1], lambda: k4(qplf, reg=leg_reg),
+                  *seen(graph_report[f"legged_fleet{LEGGED_FLEET}"]),
+                  TOL_LEG_PLAIN),
+        TimedPath(f"legged_pyramid_fleet{LEGGED_FLEET_SMALL}", lsolver_pyr,
+                  lsmall, lambda: glsolver_pyr(*lsmall_np), force,
+                  LEGGED_FLEET_SMALL, [0, 1, 0, 0],
+                  lambda: k2(qp_pyr_small, ipm_pyr),
+                  *seen(pyr_report[f"batch{LEGGED_FLEET_SMALL}"]),
+                  TOL_LEG_PLAIN),
+        TimedPath("convex_trot_batch1", cvx_eager, on_card(cvx1),
+                  lambda: cvx_solve(*cvx1), lambda s: s[0], 1, [1, 0, 0, 0],
+                  lambda: k1(qp_cvx1, cvx_ipm),
+                  *seen(cvx_report["trot_batch1"]), TOL_PRIMAL),
+        TimedPath(f"convex_trot_fleet{CONVEX_FLEET}", cvx_eager,
+                  on_card(cvxf), lambda: cvx_solve(*cvxf), lambda s: s[0],
+                  CONVEX_FLEET, [0, 1, 0, 0], lambda: k2(qp_cvxf, cvx_ipm),
+                  *seen(cvx_report[f"trot_batch{CONVEX_FLEET}"]),
+                  TOL_PRIMAL)]
+    emit(phase_device_timing(dev, card, kit, paths))
+
+    # Phases 19-20: the projected equality mode and the condensed backend,
+    # the scenario mesh.
     emit(phase_projected_condensed(dev, card, kit, load_util(), cfg, scp,
                                    mpc, one, many))
     emit(phase_mesh(dev, card, kit, convex, solf))
 
-    # Phase 20: the DDP planning node. Phase 21: the deployed two-process
+    # Phase 21: the DDP planning node. Phase 22: the deployed two-process
     # topology with the SQP node on the card (K3 with the soft cone, K1
     # with the pyramid cone, in the planner's own process).
     emit(phase_legged_ddp(dev, card, lcfg, sqp_observations))
