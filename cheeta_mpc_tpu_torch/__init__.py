@@ -7,12 +7,11 @@ one CUDA graph per call signature in place of ``jit``, and hand-written
 CUDA kernels (``csrc/``, built by ``native/build.py`` at first launch) in
 place of the Pallas kernels.
 
-Ported: everything the JAX package does apart from its earlier benchmark
-script (``bench.py``, not a module of the package) — the centroidal MPC main
-path, the legged SRBD MPC, the real-time planning path on top of them, the
+Ported: everything the JAX package does — the centroidal MPC main path,
+the legged SRBD MPC, the real-time planning path on top of them, the
 deployed runtime around it, the convex SRB MPC, the second equality mode,
-the condensed backend, the scenario mesh and the device timing with the
-work counts:
+the condensed backend, the scenario mesh, the device timing with the work
+counts, and the benchmark program (the root ``bench.py``'s counterpart):
 
 - ``core.types``            problem/solution containers
 - ``ops.linalg_small``      SPD inverse of the torch executor
@@ -73,6 +72,9 @@ work counts:
 - ``parallel.mesh``         scenario batches over devices and processes
                             (``torch.distributed``: gloo on the CPU, nccl on
                             the cards)
+- ``bench``                 the benchmark program on the card
+                            (``python3 -m cheeta_mpc_tpu_torch.bench``): the
+                            root ``bench.py``'s paths, one JSON line last
 - ``examples``              scenario generators (numpy)
 - ``convert``               numpy/dict -> port objects, for cross-package tests
 

@@ -34,14 +34,18 @@ topology (``launch``): ``cli.launch`` with its planner and plant in two
 processes over the shared-memory bus (soft cone with a live gait switch,
 pyramid cone), and this script as the tracking side against a spawned
 planner process, round trips timed, the trajectory held against the same
-loop in-process. It prints one JSON object per line. The last line is
+loop in-process. Last, the port's benchmark program in a child process
+that never started a profiler (``bench``: ``python3 -m
+cheeta_mpc_tpu_torch.bench``, its batch-1 host p50s beside this process's
+graphed ones). It prints one JSON object per line. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line; without a CUDA device it fails at once. Needs no network. Besides
-``nvidia-smi`` and the compilers it starts the launcher's and the planner's
-processes, each in a process group of its own that it waits for or kills.
+``nvidia-smi`` and the compilers it starts the benchmark's, the launcher's
+and the planner's processes, each in a process group of its own that it
+waits for or kills.
 """
 
 from __future__ import annotations
@@ -208,6 +212,7 @@ CONDENSED_SOLVES = 50  # host-clock graphed solves per backend and batch
 # the margins leave room for the host clock's spread.
 CHAIN_BATCH1, CHAIN_FLEET = (4, 20), (2, 8)
 SLOPE_OVER_P50, SLOPE_UNDER_KERNELS = 1.05, 0.9
+BENCH_TIMEOUT_S = 600  # the benchmark program, kernels already built
 
 
 def emit(obj) -> None:
@@ -1300,6 +1305,49 @@ def phase_device_timing(dev, card, kit, paths) -> dict:
     return report
 
 
+def phase_bench(card, graph_report) -> dict:
+    """``python3 -m cheeta_mpc_tpu_torch.bench`` in a child process, one
+    that never started a profiler: gated on its exit code, its last line's
+    keys (``bench.RESULT_KEYS``) and every number in it finite (the child
+    gates its own oracles and launch counts). Its batch-1 host p50s stand
+    beside this process's graphed p50s of the same paths, read after a
+    profiler session."""
+    from cheeta_mpc_tpu_torch.bench import RESULT_KEYS
+    t_start = time.perf_counter()
+    rc, out, err = run_child(
+        [sys.executable, "-m", "cheeta_mpc_tpu_torch.bench"],
+        dict(os.environ), pathlib.Path(__file__).resolve().parent,
+        BENCH_TIMEOUT_S)
+    check(rc == 0, f"bench: exit code {rc}; stderr ends {err[-3000:]}")
+    result = json.loads(out.strip().splitlines()[-1])
+    missing = sorted(RESULT_KEYS - set(result))
+    check(not missing, f"bench: keys missing from its last line: {missing}")
+
+    def numbers(obj):
+        if isinstance(obj, dict):
+            for v in obj.values():
+                yield from numbers(v)
+        elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+            yield obj
+
+    check(all(math.isfinite(v) for v in numbers(result)),
+          "bench: a number in its last line is not finite")
+
+    def beside(bench_key, path):
+        return {"bench": result[bench_key],
+                "chip_smoke_graphed": graph_report[path]["graphed_ms"]["p50"]}
+
+    return {"phase": "bench", "card": card,
+            "seconds": time.perf_counter() - t_start,
+            "host_p50_ms": {
+                "centroidal_batch1": beside("batch1_cold_p50_ms",
+                                            "centroidal_batch1"),
+                "legged_soft_batch1": beside("legged_p50_ms",
+                                             "legged_soft_batch1")},
+            "progress": [ln for ln in out.splitlines() if ln.startswith("#")],
+            "result": result}
+
+
 def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
                               many):
     """The second equality mode and the condensed backend: the
@@ -2282,6 +2330,11 @@ def main() -> int:
     # with the pyramid cone, in the planner's own process).
     emit(phase_legged_ddp(dev, card, lcfg, sqp_observations))
     emit(phase_launch(dev, card))
+
+    # Phase 23: the benchmark program in a process of its own that never
+    # started a profiler, last, so that no earlier phase shares the card
+    # with it.
+    emit(phase_bench(card, graph_report))
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
