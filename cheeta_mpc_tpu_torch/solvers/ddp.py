@@ -24,9 +24,10 @@ The same arithmetic as the JAX package's, in PyTorch's idiom:
 A solve makes no host copy and waits for nothing, so it can be captured as
 one CUDA graph (``utils/cuda_graph.graphed``). The JAX package computes DDP
 with no Pallas kernel, so this module has none either. Each iteration's
-stages are ``torch.profiler`` ranges (``ddp.linearize``, ``ddp.hessian``,
-``ddp.riccati``, ``ddp.line_search``), so a profiled eager solve splits its
-device time by stage (``chip_smoke.py``, phase ``legged_ddp``).
+stages (``ddp.linearize``, ``ddp.hessian``, ``ddp.riccati``,
+``ddp.line_search``) are ``utils/timing.stage`` marks: a graphed solve's
+replays time them on the device (``chip_smoke.py``, phase ``legged_ddp``),
+and an eager solve under a profiler shows them as ranges.
 """
 
 from __future__ import annotations
@@ -35,13 +36,13 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from cheeta_mpc_tpu_torch.core.types import DynamicsLin
 from cheeta_mpc_tpu_torch.ops.linalg_small import sym_inverse
 from cheeta_mpc_tpu_torch.ops.riccati import (bmv, riccati_factorize,
                                               riccati_vector)
 from cheeta_mpc_tpu_torch.solvers.scp import matmul_precision
+from cheeta_mpc_tpu_torch.utils.timing import stage
 
 
 class DdpSettings(NamedTuple):
@@ -201,15 +202,15 @@ def _solve_ddp(step, stage_cost, terminal_cost, x0, u_init,
 
     def iteration(x_traj, u_traj):
         # Linearize dynamics and quadratize cost along the nominal.
-        with record_function("ddp.linearize"):
+        with stage("ddp.linearize"):
             A, B = vmap(lin)(ks, x_traj[:-1], u_traj)
             dyn = DynamicsLin(A=A, B=B, b=torch.zeros((N, nx), **kw))
-        with record_function("ddp.hessian"):
+        with stage("ddp.hessian"):
             Qs, qs, Rs, rs, Ss = vmap(quad)(ks, x_traj[:-1], u_traj)
             QN, qN = terminal_quad(x_traj[-1])
             Q = torch.cat([Qs, QN[None]])
             q = torch.cat([qs, qN[None]])
-        with record_function("ddp.riccati"):
+        with stage("ddp.riccati"):
             # Gauss-Newton: project out potential indefiniteness via G
             # reg. G need not be positive definite here (the JAX
             # package's Schur inverse inverts it regardless): invert it by
@@ -219,7 +220,7 @@ def _solve_ddp(step, stage_cost, terminal_cost, x0, u_init,
             kff, pvec = riccati_vector(dyn, q, rs, factors)
 
         # Parallel line-search ladder of closed-loop rollouts.
-        with record_function("ddp.line_search"):
+        with stage("ddp.line_search"):
             xts, uts = rollout_closed(x_traj, u_traj, factors.K, kff)
             costs = vmap(total_cost)(xts, uts)
             base = total_cost(x_traj, u_traj)

@@ -17,6 +17,10 @@ Counterpart of ``cheeta_mpc_tpu/solvers/scp.py``: per iteration
                                               decrease
 - A fixed iteration count replaces convergence exits; convergence is still
   classified and reported.
+- Each iteration's three parts are stages (``utils/timing.stage``):
+  ``sqp.linearize``, ``sqp.qp`` and ``sqp.line_search``, timed on the
+  device inside a captured CUDA graph and profiler ranges when run eagerly
+  under a profiler.
 - Trajectories may carry leading batch dimensions. Regime, step size, step
   type and convergence code are chosen per batch element with
   ``torch.where`` / gathers — what ``jax.vmap`` makes of the JAX package's
@@ -36,6 +40,7 @@ import torch
 
 from cheeta_mpc_tpu_torch.core.types import OcpQpData, PerformanceIndex
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings, solve_ocp_qp
+from cheeta_mpc_tpu_torch.utils.timing import stage
 
 # Step types.
 STEP_ZERO = 0
@@ -219,9 +224,14 @@ def _solve_nonlinear_ocp(linearize, performance, x_init, u_init,
         alphas[i:i + 1].fill_(step)
 
     def iteration(x, u):
-        data = linearize(x, u)
-        sol = qp_solve(data)
+        with stage("sqp.linearize"):
+            data = linearize(x, u)
+        with stage("sqp.qp"):
+            sol = qp_solve(data)
+        with stage("sqp.line_search"):
+            return line_search(x, u, data, sol)
 
+    def line_search(x, u, data, sol):
         base = performance(x, u)
         base_viol = _total_violation(base)
         # Armijo descent metric: cost-gradient . direction from the LQ data.

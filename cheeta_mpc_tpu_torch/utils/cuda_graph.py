@@ -30,6 +30,17 @@ the host one graph launch.
 - A replay calls no kernel wrapper, so the wrappers' launch counters count
   the warm-up calls and the capture only; a replay's kernels are counted by
   name in a profiler trace (``chip_smoke.py``).
+- Timing, switched by the profiler's own state (``utils/timing.py``). The
+  capture records timing events at the graph's start and end and around
+  each ``timing.stage`` of the solve; the last replay made before a
+  profiler session is folded into ``stats["stage_ms"]`` (device ms by
+  stage) at the session's first call. The host's phases of a call,
+  ``inputs`` (from the call to the launch: signature, staging, input
+  copies) and ``launch`` (``graph.replay()``), are timed on every replay
+  made while no profiler records, their means in ``stats["host_ms"]``;
+  while one records they are profiler ranges ``graphed.inputs``,
+  ``graphed.launch`` and ``graphed.result`` (the output copies), nested
+  in the caller's ranges.
 
 On ``device="cpu"`` nothing is captured and the function runs as it is. On
 a CUDA device a failed capture raises; nothing runs eagerly in its place.
@@ -47,6 +58,8 @@ import numpy as np
 import torch
 
 from cheeta_mpc_tpu_torch.core.types import resolve_device
+from cheeta_mpc_tpu_torch.utils.timing import (RepeatedTimer, StageRecord,
+                                               add_unprofiled, span)
 
 WARMUP_CALLS = 2
 MAX_CAPTURES = 16  # call signatures one graphed callable captures at most
@@ -219,7 +232,9 @@ class _Entry:
         self.copied = torch.cuda.Event()  # the staging buffers' last copy
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out_struct = self.out_layout = self.packed = None
-        self.stats: dict = {}
+        self.stats: dict = {}  # updated in place: readers keep the object
+        self.stages = StageRecord(self.stats)
+        self.host = {"inputs": RepeatedTimer(), "launch": RepeatedTimer()}
 
     def load(self, leaves) -> None:
         """Copy the call's inputs into the static tensors: host arrays in
@@ -244,6 +259,16 @@ class _Entry:
         fresh = {dtype: buf.clone() for dtype, buf in self.packed.items()}
         return _unflatten(self.out_struct, self.out_layout.views(fresh))
 
+    def time_host(self, inputs_s: float, launch_s: float) -> None:
+        """Fold one replay's host phases into ``stats["host_ms"]``; dropped
+        while a profiler records."""
+        inputs, launch = self.host["inputs"], self.host["launch"]
+        if add_unprofiled(inputs, inputs_s * 1e3):
+            launch.add(launch_s * 1e3)
+            self.stats["host_ms"] = {"inputs": inputs.avg_ms,
+                                     "launch": launch.avg_ms,
+                                     "replays": inputs.count}
+
 
 def graphed(fn: Callable, device="cuda") -> Callable:
     """``fn`` as a callable with its signature that captures one CUDA graph
@@ -253,8 +278,9 @@ def graphed(fn: Callable, device="cuda") -> Callable:
     The returned callable carries ``graphs``, a dict from call signature to
     the captured entry, and ``entry_of(*args, **kwargs)``, the entry of a
     call's signature; an entry's ``stats`` hold the capture's and the
-    instantiation's seconds, the graph's nodes and the bytes that the
-    capture added to the reserved device memory (its private pool)."""
+    instantiation's seconds, the graph's nodes, the bytes that the
+    capture added to the reserved device memory (its private pool), and
+    once measured ``stage_ms`` and ``host_ms`` (module docstring)."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         return fn
@@ -275,7 +301,7 @@ def graphed(fn: Callable, device="cuda") -> Callable:
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), entry.stages.capturing():
             out_leaves: list = []
             entry.out_struct = _flatten(fn(*args, **kwargs), out_leaves,
                                         _ARRAYS)
@@ -285,29 +311,45 @@ def graphed(fn: Callable, device="cuda") -> Callable:
         t1 = time.perf_counter()
         graph.instantiate()
         torch.cuda.synchronize(dev)
-        entry.stats = {
-            "capture_s": t1 - t0, "instantiate_s": time.perf_counter() - t1,
-            "nodes": graph_node_count(graph),
-            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+        entry.stats.update(
+            capture_s=t1 - t0, instantiate_s=time.perf_counter() - t1,
+            nodes=graph_node_count(graph),
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
         entry.graph = graph
 
     name = getattr(fn, "__qualname__", repr(fn))
 
-    def call(*args, **kwargs):
+    def prepare(args, kwargs):
+        """The call's entry with its inputs loaded, and whether this call
+        captured it; the entry's last replay is folded first if it is due
+        (``timing.StageRecord``)."""
         key, leaves = _signature(args, kwargs)
-        struct = key[0]
+        entry = graphs.get(key)
+        if entry is None:
+            _check_capture_bound(graphs, key, name)
+            entry = _Entry(key[0], leaves, dev)
+            entry.load(leaves)
+            capture(entry)
+            graphs[key] = entry
+            return entry, True
+        entry.stages.fold()
+        entry.load(leaves)
+        return entry, False
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
         with torch.cuda.device(dev):
-            entry = graphs.get(key)
-            if entry is None:
-                _check_capture_bound(graphs, key, name)
-                entry = _Entry(struct, leaves, dev)
-                entry.load(leaves)
-                capture(entry)
-                graphs[key] = entry
-            else:
-                entry.load(leaves)
-            entry.graph.replay()
-            return entry.result()
+            with span("graphed.inputs"):
+                entry, captured = prepare(args, kwargs)
+            t1 = time.perf_counter()
+            with span("graphed.launch"):
+                entry.graph.replay()
+            t2 = time.perf_counter()
+            entry.stages.replayed()
+            if not captured:
+                entry.time_host(t1 - t0, t2 - t1)
+            with span("graphed.result"):
+                return entry.result()
 
     def entry_of(*args, **kwargs) -> Optional[_Entry]:
         """The captured entry of this call's signature, or None."""

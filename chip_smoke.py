@@ -139,9 +139,6 @@ NODE_MRT_DT, NODE_RATIO, NODE_STEPS = 0.005, 4, 240
 # f64 CPU DDP on the first solve's inputs: measured 6.8e-5 N on an H100,
 # bound 1e-3 N.
 TOL_DDP_F64 = 1e-3
-# The profiler ranges of one DDP iteration (solvers/ddp.py).
-DDP_RANGES = ("ddp.linearize", "ddp.hessian", "ddp.riccati",
-              "ddp.line_search")
 # The deployed topology (cli/launch.py) with the stand-in .info files of
 # tests/torch_port_util.py: planner and plant in two processes at the
 # launcher's 15 ms plant step and two plant steps per solve, for 1.8 s; the
@@ -505,45 +502,6 @@ def percentiles(ms) -> dict:
     return {"p50": pct(50), "p99": pct(99), "max": ts[-1], "n": n}
 
 
-def stage_split(call) -> dict:
-    """One eager ``call()`` of the DDP solver under ``torch.profiler``: the
-    device time of all its kernels and of those launched inside each stage
-    range of solvers/ddp.py (``DDP_RANGES``). The profiler ties each kernel
-    to the one operator that launched it; an operator counts for the range
-    its start lies in. (A range's own device time is the span of its
-    kernels on the device timeline, idle gaps included, so it is not
-    used.) A replay runs the same kernels, so the shares are the
-    replay's; the ranges exist only where the host runs the solver's
-    Python."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    events = prof.events()
-    total = sum(e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA
-                and e.name not in DDP_RANGES) / 1e3
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.device_type == DeviceType.CPU and e.name in DDP_RANGES]
-    range_ms = dict.fromkeys(DDP_RANGES + ("outside",), 0.0)
-    for e in events:
-        if e.device_type != DeviceType.CPU or e.name in DDP_RANGES:
-            continue
-        us = sum(k.duration for k in e.kernels if k.name not in DDP_RANGES)
-        if us:
-            start = e.time_range.start
-            name = next((n for a, b, n in spans if a <= start <= b),
-                        "outside")
-            range_ms[name] += us / 1e3
-    return {"device_ms": total, "range_ms": range_ms,
-            "attributed_ms": sum(range_ms.values()),
-            "share": {k: v / total if total else None
-                      for k, v in range_ms.items()}}
-
-
 def node_gait():
     """The planning-node scenario's gait: stance, then the trot from 0.2 s
     after 0.1 s of transition."""
@@ -561,9 +519,11 @@ def phase_legged_ddp(dev, card, lcfg, sqp_observations) -> dict:
     (i) The 60 observations of the soft-cone SQP node's lock-step loop
     (phase ``legged_node``), each answered by the DDP node: graphed
     against eager, host launches per solve, forces against the f64 CPU
-    DDP, the force checks at every solve, the solve times, and the time
-    split by stage. (ii) The DDP node closing the loop itself, as phase
-    ``legged_node`` runs it. Its first iterate is the open-loop rollout of
+    DDP, the force checks at every solve, the solve times, and the device
+    ms by stage of the last replay before a profiled one (the graph's
+    ``stats["stage_ms"]``). (ii)
+    The DDP node closing the loop itself, as phase ``legged_node`` runs
+    it. Its first iterate is the open-loop rollout of
     the weight-compensating input, as in the JAX package; over a 1 s
     horizon that rollout tumbles from any state off the symmetric stance,
     and in both packages the loop's cost jumps 145x at the second solve
@@ -647,7 +607,12 @@ def phase_legged_ddp(dev, card, lcfg, sqp_observations) -> dict:
           f"DDP node: a solve made {tr['host_kernel_launches']} kernel "
           f"launches and {tr['graph_launches']} graph launches on the "
           "host; expected 0 and 1")
-    split = stage_split(lambda: graph_fn.__wrapped__(*args, **kwargs))
+    # The profiled solve folded in the stage events of the replay before.
+    stage_ms = graph_fn.entry_of(*args, **kwargs).stats.get("stage_ms", {})
+    check(stage_ms.get("folded") == 1 and len(stage_ms["ms"]) == 6,
+          f"DDP node: the stages of the replay before the profiled one "
+          f"were not folded in: "
+          f"{stage_ms}")
     steady = Benchmarker()
     steady.samples_ms = node.bench.samples_ms[1:n_solves]
     costs = [float(sol.cost) for _, _, sol in calls[:n_solves]]
@@ -672,7 +637,7 @@ def phase_legged_ddp(dev, card, lcfg, sqp_observations) -> dict:
         "replay": {k: tr[k] for k in ("host_kernel_launches",
                                       "graph_launches", "host_copies",
                                       "device_ops", "device_ms")},
-        "eager_stage_split": split}
+        "replay_stage_ms": stage_ms}
 
     # (ii) The DDP node closing the loop: the same node (a DDP solve
     # carries no state from one to the next), a fresh gait for the plant.
