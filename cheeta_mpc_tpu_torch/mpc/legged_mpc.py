@@ -37,14 +37,16 @@ from cheeta_mpc_tpu_torch.core.types import (CostApprox, DynamicsLin,
 from cheeta_mpc_tpu_torch.models.quadruped_kinematics import \
     foot_positions_world
 from cheeta_mpc_tpu_torch.models.srbd_legged import (
-    NU, NX, SrbdParams, foot_velocity_constraint_values, srbd_linearize,
-    srbd_step, unpack_srbd_state, value_and_jacfwd, weight_compensating_input)
+    GRAVITY, NU, NX, SrbdParams, foot_velocity_constraint_values,
+    srbd_linearize, srbd_step, unpack_srbd_state, value_and_jacfwd,
+    weight_compensating_input)
 from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import _as_tensor
 from cheeta_mpc_tpu_torch.mpc.friction_cone import (FrictionConeConfig,
                                                     RelaxedBarrierConfig,
                                                     barrier_cost_quadratic,
                                                     cone_value,
                                                     relaxed_barrier)
+from cheeta_mpc_tpu_torch.ops.cuda_legged_linearize import legged_linearize
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
 from cheeta_mpc_tpu_torch.solvers.scp import (ScpSettings, make_performance,
                                               solve_nonlinear_ocp)
@@ -125,6 +127,20 @@ def _pyramid(mu):
                      [0.0, 1.0, mu], [0.0, 0.0, 1.0]])
 
 
+def l1_model(cfg: LeggedMpcConfig, cone: FrictionConeConfig,
+             barrier: RelaxedBarrierConfig) -> list:
+    """The model and task constants in the order of L1's ``Model``
+    (csrc/legged_linearize.cu)."""
+    p, d = cfg.params, cfg.params.desc
+    return [p.dt, GRAVITY, d.mass, *(1.0 / i for i in d.inertia),
+            *d.com_offset, *(c for hip in d.hip_offsets for c in hip),
+            d.hip_length, d.thigh_length, d.shank_length,
+            cfg.position_error_gain, *cfg.q_diag, *cfg.r_diag,
+            cone.friction_coefficient, cone.regularization,
+            cone.gripper_force, cone.hessian_diagonal_shift, barrier.mu,
+            barrier.delta]
+
+
 def build_legged_solver(cfg: LeggedMpcConfig,
                         scp: ScpSettings = ScpSettings(
                             iterations=2, ipm=IpmSettings(iters=10)),
@@ -163,6 +179,7 @@ def build_legged_solver(cfg: LeggedMpcConfig,
     Rm = torch.diag_embed(Rd).repeat(N, 1, 1)
     Sm = torch.zeros((N, NU, NX), **kw)
     eye_l = torch.eye(NL, **kw).reshape(NL, 1, NL, 1)
+    l1_params = l1_model(cfg, cone_cfg, bar_cfg)
     # Friction-pyramid constants (static per config).
     D_np = np.zeros((N + 1, NG, NU))
     for i in range(NL):
@@ -216,7 +233,10 @@ def build_legged_solver(cfg: LeggedMpcConfig,
         return StageConstraint(C=C_c, D=D_c, lg=lg_c - g_iter,
                                ug=ug_c - g_iter, mask=refs.ineq_mask)
 
-    def linearize(x_traj, u_traj, refs):
+    def linearize_plain(x_traj, u_traj, refs):
+        """The OCP-QP at ``(x_traj, u_traj)`` by forward-mode autodiff in
+        plain PyTorch, on any device and in any dtype: the CPU's path, and
+        what L1 is held to on the card."""
         A, B, f = srbd_linearize(p, x_traj[..., :-1, :], u_traj, refs.enable,
                                  refs.dts)
         dyn = DynamicsLin(A=A, B=B, b=f - x_traj[..., 1:, :])
@@ -241,6 +261,23 @@ def build_legged_solver(cfg: LeggedMpcConfig,
         con = None if soft else build_ineq(u_traj, refs)
         return OcpQpData(dyn=dyn, cost=cost, con=con,
                          dx0=torch.zeros_like(x_traj[..., 0, :]), eq=eq)
+
+    def linearize(x_traj, u_traj, refs):
+        if x_traj.device.type == "cpu":
+            return linearize_plain(x_traj, u_traj, refs)
+        # One launch of L1 (ops/cuda_legged_linearize.py). The cold start's
+        # state is a broadcast view, which the kernel takes only as a copy.
+        lin = legged_linearize(
+            x_traj.contiguous(), u_traj.contiguous(), refs.enable,
+            refs.z_pos, refs.z_vel, refs.eq_mask, refs.x_ref, refs.u_ref,
+            refs.dts, l1_params, soft=soft, rk2=p.integrator != "euler")
+        cost = CostApprox(Q=Qm, q=lin.q, R=Rm if lin.R is None else lin.R,
+                          r=lin.r, S=Sm)
+        con = None if soft else build_ineq(u_traj, refs)
+        return OcpQpData(
+            dyn=DynamicsLin(A=lin.A, B=lin.B, b=lin.b), cost=cost, con=con,
+            dx0=torch.zeros_like(x_traj[..., 0, :]),
+            eq=StageEquality(C=lin.C, D=lin.D, e=lin.e, mask=refs.eq_mask))
 
     def make_perf(refs):
         def dyn_defects(x_traj, u_traj):
@@ -304,11 +341,13 @@ def build_legged_solver(cfg: LeggedMpcConfig,
             x_init = torch.cat([x0[..., None, :], x_init[..., 1:, :]], dim=-2)
         return refs, x_init, u_init
 
-    def initial_qp(*args, **kwargs) -> OcpQpData:
+    def initial_qp(*args, plain=False, **kwargs) -> OcpQpData:
         """The OCP-QP of the first SQP iteration (the linearization at the
-        starting trajectory); same arguments as ``solve``."""
+        starting trajectory); same arguments as ``solve``. ``plain`` builds
+        it by the plain version on any device."""
         refs, x_init, u_init = start(*args, **kwargs)
-        return linearize(x_init, u_init, refs)
+        return (linearize_plain if plain else linearize)(x_init, u_init,
+                                                         refs)
 
     def solve(x0, x_ref_traj, enable_table, z_pos_ref, z_vel_ref,
               warm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

@@ -159,6 +159,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [_INT, _INT, _INT, _LL, ctypes.POINTER(_INT)]
         fn.restype = _INT
+    lib.cheeta_legged_linearize.argtypes = [
+        ctypes.POINTER(_PTR), ctypes.POINTER(_LL),  # inputs, their strides
+        ctypes.POINTER(_PTR), ctypes.POINTER(_INT),  # outputs, dims
+        ctypes.POINTER(ctypes.c_float), _PTR]  # params, stream
+    lib.cheeta_legged_linearize.restype = _INT
+    lib.cheeta_legged_linearize_num_params.argtypes = []
+    lib.cheeta_legged_linearize_num_params.restype = _INT
+    lib.cheeta_legged_linearize_occupancy.argtypes = [ctypes.POINTER(_INT)]
+    lib.cheeta_legged_linearize_occupancy.restype = _INT
     lib.cheeta_cuda_error_string.argtypes = [_INT]
     lib.cheeta_cuda_error_string.restype = ctypes.c_char_p
 

@@ -128,7 +128,8 @@ def tensor_pointers(named, dev, batch: Optional[int]):
     than float32, a non-contiguous tensor, a wrong shape."""
     ptrs, strides = [], []
     for name, t, shape in named:
-        _check(t.device == dev, f"{name} is on {t.device}, dx0 on {dev}")
+        _check(t.device == dev,
+               f"{name} is on {t.device}, the other inputs on {dev}")
         _check(t.dtype == torch.float32,
                f"{name} is {t.dtype}: the kernel takes float32 only",
                TypeError)

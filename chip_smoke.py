@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from ``cheeta_mpc_tpu_torch/csrc/`` — the
+Builds the CUDA kernels from ``cheeta_mpc_tpu_torch/csrc/`` — the
 Riccati interior-point solve of one OCP-QP (K1, ``ipm_riccati_single.cu``)
 and of a batch (K2, ``ipm_riccati_fleet.cu``), the equality-constrained
 Riccati solve of one OCP-QP (K3, ``eq_riccati_single.cu``) and of a batch
-(K4, ``eq_riccati_fleet.cu``) — and holds each against its plain PyTorch
-version on the card. Then it drives both main paths through the entry
-points a user calls: the centroidal MPC (batch 1 through K1, a fleet of 1024
-scenarios through K2) and the legged SRBD MPC at the reference's scale
-(horizon 67, 24 states and inputs, 16 stage-equality rows: batch 1 through
-K3, pyramid mode at batch 1 through K1 with stage equalities, a fleet of 512
-scenarios through K4). It checks the results, times kernels and solves with
+(K4, ``eq_riccati_fleet.cu``), and the legged SQP linearization (L1,
+``legged_linearize.cu``, phase ``legged_linearize``) — and holds each
+against its plain PyTorch version on the card. Then it drives both main
+paths through the entry points a user calls: the centroidal MPC (batch 1
+through K1, a fleet of 1024 scenarios through K2) and the legged SRBD MPC
+at the reference's scale (horizon 67, 24 states and inputs, 16
+stage-equality rows, linearized by L1: batch 1 through K3, pyramid mode at
+batch 1 through K1 with stage equalities, a fleet of 512 scenarios through
+K4). It checks the results, times kernels and solves with
 CUDA events, and counts what one solve costs the host. Then it drives the
 real-time planning path: each of those five solves as one CUDA graph per
 solve against its eager run (``graph_vs_eager``: results, host launches,
@@ -125,9 +127,11 @@ TOL_PYRAMID = 1e-3  # stance forces inside the friction pyramid, N
 GRAPH_SOLVES = 200  # host-clock graphed solves per path, for p50 / p99
 EAGER_SOLVES = 50  # host-clock eager solves per path (beside the graphed)
 BUDGET_MS, BUDGET_P99_MS = 20.0, 30.0  # 50 Hz replanning; BASELINE's p99
-# The four kernels as a profiler trace names them, K1..K4.
+# The kernels as a profiler trace names them: the QP kernels K1..K4 and
+# L1, the legged linearization (one launch per legged SQP iteration).
 KERNEL_NAMES = ("ipm_riccati_single_kernel", "ipm_riccati_fleet_kernel",
-                "eq_riccati_single_kernel", "eq_riccati_fleet_kernel")
+                "eq_riccati_single_kernel", "eq_riccati_fleet_kernel",
+                "legged_linearize_kernel")
 LOOP_TICKS = 20  # the on-device n-tick loop (build_centroidal_mpc_loop)
 # The legged planning node: trot at 0.25 m/s after 0.2 s of stance, driven
 # for 1.2 s by the lock-step dummy loop with the plant stepping every 5 ms
@@ -210,6 +214,20 @@ CONDENSED_SOLVES = 50  # host-clock graphed solves per backend and batch
 CHAIN_BATCH1, CHAIN_FLEET = (4, 20), (2, 8)
 SLOPE_OVER_P50, SLOPE_UNDER_KERNELS = 1.05, 0.9
 BENCH_TIMEOUT_S = 600  # the benchmark program, kernels already built
+# L1, the legged linearization kernel, against its plain version
+# (torch.func.jacfwd) on the same CUDA tensors, each array's widest gap
+# relative to its largest entry. Dual numbers apply jacfwd's own JVP rule
+# to each primitive and reassociate nothing that jacfwd does not; the gaps
+# come from the compiler fusing a product and a sum into one fmaf, from
+# sums of three or four terms in another order and from the card's sincosf
+# beside PyTorch's sin and cos: a few f32 roundings, amplified at most by
+# the cancellations inside the RK2 step. Measured on an H100 over 16
+# instances at batch 1 and 512: at most 5.8e-7 (e; A 2.3e-7, C 3.7e-7),
+# where the plain f32 version itself lies up to 7.0e-7 from the f64 one.
+# The bound leaves a factor of ten. Inactive equality rows of C and D must
+# be exact zeros.
+TOL_L1 = 6e-6
+L1_TIMED_LAUNCHES = 20  # launches per CUDA graph when timing L1
 
 
 def emit(obj) -> None:
@@ -444,7 +462,8 @@ def compare_solutions(sol, ref, gains: bool, what: str) -> dict:
 
 def trace_counts(call):
     """One ``call()`` under ``torch.profiler``: the host's kernel launches,
-    graph launches and copies, the kernels K1..K4 by name on the device and
+    graph launches and copies, the kernels K1..K4 and L1 by name on the
+    device and
     their device time, every device operation (kernels, copies, fills) and
     the device time of them all; returned with what ``call()`` returned."""
     from torch.autograd import DeviceType
@@ -999,7 +1018,7 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
                 kit, qp, sk, ipm_pyr, f"pyramid fleet {batch}")
         tr, sol = kit.graphed_run(f"legged pyramid fleet {batch}",
                                   lambda: glsolver_pyr(*args_np),
-                                  [0, 1, 0, 0])
+                                  [0, 1, 0, 0, 1])
         eager = lsolver_pyr(*args)
         torch.cuda.synchronize()
         bit_equal = all(torch.equal(getattr(sol, k), getattr(eager, k))
@@ -1015,8 +1034,9 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
         kit.reset_counts()
         one = lsolver_pyr(*(a[1] for a in args_np))
         torch.cuda.synchronize()
-        check(kit.counts() == [1, 0, 0, 0],
-              f"the batch-1 pyramid solve launched K1..K4 {kit.counts()}x")
+        check(kit.counts() == [1, 0, 0, 0, 1],
+              f"the batch-1 pyramid solve launched K1..K4, L1 "
+              f"{kit.counts()}x")
         el1 = max_abs(sol.forces[1], one.forces)
         check(el1 <= TOL_PYRAMID_ELEMENT,
               f"pyramid fleet {batch}: element 1 differs from its batch-1 "
@@ -1104,7 +1124,7 @@ def phase_convex_mpc(dev, card, kit):
             args = convex_scenarios(batch, gait)
             inputs[gait, batch] = args
             what = f"convex {gait}, batch {batch}"
-            want = [1, 0, 0, 0] if batch == 1 else [0, 1, 0, 0]
+            want = [1, 0, 0, 0, 0] if batch == 1 else [0, 1, 0, 0, 0]
             tr, (f, sol) = kit.graphed_run(what, lambda: solve(*args), want)
             f_e, _ = getattr(solve, "__wrapped__", solve)(*args)
             torch.cuda.synchronize()
@@ -1198,8 +1218,8 @@ class TimedPath(NamedTuple):
     graphed: Callable  # one graphed solve on the same inputs
     out: Callable  # solve result -> the forces compared
     batch: int
-    want: list  # K1..K4 launches per solve
-    kernel: Callable  # one of those launches, on the path's first QP
+    want: list  # K1..K4, L1 launches per solve
+    kernel: Callable  # one launch of its QP kernel, on the path's first QP
     host_p50_ms: float  # graphed host p50
     replay_device_ms: float  # device ms summed over a profiled replay
     tol: float  # the kernel's tolerance against its plain version
@@ -1225,14 +1245,14 @@ def phase_device_timing(dev, card, kit, paths) -> dict:
               "chain_solves": {"batch1": CHAIN_BATCH1, "fleet": CHAIN_FLEET}}
     for p in paths:
         k_small, k_big = CHAIN_BATCH1 if p.batch == 1 else CHAIN_FLEET
-        kernel_ms = sum(p.want) * events_ms(p.kernel)
+        kernel_ms = sum(p.want[:4]) * events_ms(p.kernel)  # K1..K4
         kit.reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t = time_chain(p.eager, p.args, k_small, k_big, device=dev)
         want = [(WARMUP_CALLS + 1) * (k_small + k_big) * w for w in p.want]
         check(kit.counts() == want,
               f"{p.name}: the chains' warm-up calls and captures launched "
-              f"K1..K4 {kit.counts()}x; expected {want}")
+              f"K1..K4, L1 {kit.counts()}x; expected {want}")
         ms = 1e3 * t.seconds
         check(math.isfinite(ms) and ms > 0,
               f"{p.name}: device time by slope {ms} ms")
@@ -1342,9 +1362,10 @@ def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
             x, u = res.x.cpu(), res.u.cpu()
             wall = time.perf_counter() - t0
             if where == dev:
-                check(kit.counts() == [0, 0, CIRCLE_SQP_ITERS, 0],
-                      f"circle ({mode}) launched K1..K4 {kit.counts()}x; "
-                      f"expected [0, 0, {CIRCLE_SQP_ITERS}, 0]")
+                check(kit.counts() == [0, 0, CIRCLE_SQP_ITERS, 0, 0],
+                      f"circle ({mode}) launched K1..K4, L1 "
+                      f"{kit.counts()}x; expected "
+                      f"[0, 0, {CIRCLE_SQP_ITERS}, 0, 0]")
                 report[f"circle_{mode}"] = {"k3_launches": kit.counts()[2],
                                             "eager_s": wall}
             sols[mode, where == dev] = (x, u)
@@ -1371,7 +1392,7 @@ def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
         cfg, scp._replace(qp_backend="condensed"), device=dev), dev)
     for name, args in (("batch1", one), (f"fleet{FLEET}", many)):
         tr, sol_c = kit.graphed_run(f"condensed {name}", lambda: cond(*args),
-                                    [0, 0, 0, 0])
+                                    [0, 0, 0, 0, 0])
         sol_k = mpc.solver(*args)
         torch.cuda.synchronize()
         grf = max_abs(sol_c.contact_force, sol_k.contact_force)
@@ -1412,7 +1433,7 @@ def phase_mesh(dev, card, kit, convex, solf):
     sharded = pm.sharded_batch_solver(
         lambda d: build_convex_mpc(cfg, ipm, device=d), mesh)
     tr, (f, _) = kit.graphed_run("sharded convex fleet",
-                                 lambda: sharded(*args), [0, 1, 0, 0])
+                                 lambda: sharded(*args), [0, 1, 0, 0, 0])
     diff = max_abs(f, unsharded)
     check(torch.equal(f, unsharded), f"the sharded convex fleet differs "
           f"from the unsharded solve by {diff} N")
@@ -1451,6 +1472,183 @@ def phase_mesh(dev, card, kit, convex, solf):
             "health_of": f"centroidal fleet of {FLEET}"}
 
 
+def phase_legged_linearize(dev, card) -> dict:
+    """L1 (``ops/cuda_legged_linearize.py``) against the solver's plain
+    linearization (``initial_qp(..., plain=True)``, ``torch.func.jacfwd``)
+    on the same CUDA tensors, on seeded legged inputs at the reference's
+    scale: batch 1 and ``LEGGED_FLEET``, soft and pyramid cone, the uniform
+    and the event-aligned grid, a trot and an all-stance contact table,
+    RK2, and the Euler step on the trot's uniform grid, each from a
+    perturbed warm start; every array within ``TOL_L1`` of the plain
+    version relative to its largest entry, inactive equality rows of C and
+    D exactly zero, one L1 launch per linearization and none by the plain
+    version. Then graphed legged solves of one and two SQP iterations at
+    both batches: the wrapper launches L1 once per SQP iteration in each
+    warm-up call and the capture, and a profiled replay runs it once per
+    iteration. Last, L1's time (``events_ms`` over ``L1_TIMED_LAUNCHES``
+    launches) beside the bytes it reads and writes over the card's
+    bandwidth, and the plain version's: ``initial_qp`` timed both ways
+    (the references' set-up in both), the difference added to L1's."""
+    from cheeta_mpc_tpu_torch.examples import (LEGGED_TEST_WEIGHTS,
+                                               make_legged_example_inputs)
+    from cheeta_mpc_tpu_torch.mpc import legged_mpc as lm
+    from cheeta_mpc_tpu_torch.ops import cuda_legged_linearize as ll
+    from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS, graphed
+    from torch.profiler import ProfilerActivity, profile
+
+    t_start = time.perf_counter()
+    report = {"phase": "legged_linearize", "card": card,
+              "tolerance_rel": TOL_L1,
+              "occupancy": ll.launch_occupancy(dev)}
+
+    def config(cone, integrator="rk2"):
+        cfg = lm.LeggedMpcConfig(horizon=LEGGED_HORIZON, cone_mode=cone,
+                                 **LEGGED_TEST_WEIGHTS)
+        return cfg._replace(params=cfg.params._replace(integrator=integrator))
+
+    def inputs(cfg, batch, event, stance, seed):
+        """The trot (or all-stance) scenario and a perturbed warm start, as
+        CUDA tensors."""
+        inp = make_legged_example_inputs(cfg, batch=batch, seed=seed,
+                                         event_aligned=event)
+        if stance:
+            inp = inp._replace(enable=np.ones_like(inp.enable))
+        rng = np.random.default_rng(seed)
+        lead = () if batch is None else (batch,)
+        n = cfg.horizon
+        xw = (np.asarray(inp.x0)[..., None, :] + np.zeros(lead + (n + 1, 24))
+              + 0.05 * rng.standard_normal(lead + (n + 1, 24)))
+        uw = rng.standard_normal(lead + (n, 24)) * np.r_[np.full(12, 20.0),
+                                                         np.full(12, 0.5)]
+        uw[..., 2:12:3] += 70.0
+
+        def card_(a):
+            return None if a is None else torch.as_tensor(
+                a, dtype=torch.float32, device=dev)
+
+        return (tuple(card_(a) for a in inp.args),
+                dict(warm=(card_(xw), card_(uw)), dts=card_(inp.dts)))
+
+    def arrays(qp):
+        return {"A": qp.dyn.A, "B": qp.dyn.B, "b": qp.dyn.b, "C": qp.eq.C,
+                "D": qp.eq.D, "e": qp.eq.e, "q": qp.cost.q, "R": qp.cost.R,
+                "r": qp.cost.r}
+
+    instances = [(batch, cone, event, stance, "rk2")
+                 for batch in (None, LEGGED_FLEET)
+                 for cone in ("soft", "pyramid") for event in (False, True)
+                 for stance in (False, True)]
+    instances += [(batch, cone, False, False, "euler")
+                  for batch in (None, LEGGED_FLEET)
+                  for cone in ("soft", "pyramid")]
+    worst, rows = 0.0, []
+    for batch, cone, event, stance, integrator in instances:
+        cfg = config(cone, integrator)
+        solver = lm.build_legged_solver(cfg, device=dev)
+        args, kwargs = inputs(cfg, batch, event, stance, len(rows) + 1)
+        before = ll.legged_linearize.launches
+        got = solver.initial_qp(*args, **kwargs)
+        torch.cuda.synchronize()
+        check(ll.legged_linearize.launches == before + 1,
+              "L1: the solver's linearization on the card did not launch "
+              "it once")
+        want = solver.initial_qp(*args, plain=True, **kwargs)
+        torch.cuda.synchronize()
+        check(ll.legged_linearize.launches == before + 1,
+              "L1: the plain linearization launched it")
+        what = (f"L1 batch {batch or 1} {cone} "
+                f"{'event' if event else 'uniform'} "
+                f"{'stance' if stance else 'trot'} {integrator}")
+        errs = {}
+        for name, t in arrays(got).items():
+            ref = arrays(want)[name]
+            check(bool(torch.isfinite(t).all()),
+                  f"{what}: {name} is not finite")
+            errs[name] = max_abs(t, ref) / max(float(ref.abs().max()),
+                                               1e-30)
+            check(errs[name] <= TOL_L1,
+                  f"{what}: {name} differs from the plain version by "
+                  f"{errs[name]} of its largest entry")
+        off = got.eq.mask.expand(got.eq.e.shape) == 0
+        check(bool(off.any()) and bool((got.eq.C[off] == 0).all())
+              and bool((got.eq.D[off] == 0).all()),
+              f"{what}: an inactive equality row of C or D is not exactly "
+              "zero")
+        worst = max(worst, max(errs.values()))
+        rows.append({"what": what, "rel_err": errs})
+    report["against_plain"] = rows
+    report["worst_rel_err"] = worst
+
+    # Graphed solves: one L1 launch per SQP iteration.
+    per_iteration = {}
+    for iters in (1, 2):
+        for batch in (None, LEGGED_FLEET):
+            cfg = config("soft")
+            inp = make_legged_example_inputs(cfg, batch=batch)
+            solve = graphed(lm.build_legged_solver(
+                cfg, ScpSettings(iterations=iters), device=dev), dev)
+            before = ll.legged_linearize.launches
+            solve(*inp.args)
+            torch.cuda.synchronize()
+            capture = ll.legged_linearize.launches - before
+            check(capture == (WARMUP_CALLS + 1) * iters,
+                  f"L1: a graphed legged solve of {iters} SQP iterations "
+                  f"launched it {capture}x in its warm-up calls and capture; "
+                  f"expected {(WARMUP_CALLS + 1) * iters}")
+            before = ll.legged_linearize.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                solve(*inp.args)
+                torch.cuda.synchronize()
+            ran = sum(1 for e in prof.events()
+                      if "legged_linearize_kernel" in e.name)
+            check(ran == iters and ll.legged_linearize.launches == before,
+                  f"L1: a profiled replay of {iters} SQP iterations at batch "
+                  f"{batch or 1} ran it {ran}x and called its wrapper "
+                  f"{ll.legged_linearize.launches - before}x; expected "
+                  f"{iters} and none")
+            per_iteration[f"iterations{iters}_batch{batch or 1}"] = ran
+    report["replay_launches"] = per_iteration
+
+    # Times, soft cone on the trot, uniform grid: the bytes L1 reads (the
+    # trajectories and the references it takes) and writes, each once.
+    times = {}
+    for batch in (None, LEGGED_FLEET):
+        cfg = config("soft")
+        solver = lm.build_legged_solver(cfg, device=dev)
+        args, kwargs = inputs(cfg, batch, False, False, 99)
+        cap = {}
+        launch = lm.legged_linearize
+
+        def spy(*a, **k):
+            cap.update(args=a, kwargs=k)
+            return launch(*a, **k)
+
+        lm.legged_linearize = spy
+        try:
+            solver.initial_qp(*args, **kwargs)
+        finally:
+            lm.legged_linearize = launch
+        out = ll.legged_linearize(*cap["args"], **cap["kwargs"])
+        nbytes = 4 * (sum(t.numel() for t in out if t is not None)
+                      + sum(t.numel() for t in cap["args"]
+                            if torch.is_tensor(t)))
+        ms = events_ms(lambda: ll.legged_linearize(*cap["args"],
+                                                   **cap["kwargs"]),
+                       n=L1_TIMED_LAUNCHES)
+        qp_ms = events_ms(lambda: solver.initial_qp(*args, **kwargs), n=3)
+        plain_qp_ms = events_ms(
+            lambda: solver.initial_qp(*args, plain=True, **kwargs), n=3)
+        times[f"batch{batch or 1}"] = {
+            "ms": ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "bytes": nbytes,
+            "initial_qp_ms": qp_ms, "plain_initial_qp_ms": plain_qp_ms,
+            "plain_ms": plain_qp_ms - qp_ms + ms}
+    report["times"] = times
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1486,6 +1684,7 @@ def main() -> int:
     from cheeta_mpc_tpu_torch.ops import cuda_eq_riccati as eq_single_mod
     from cheeta_mpc_tpu_torch.ops import cuda_ipm_batch as fleet_mod
     from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as single_mod
+    from cheeta_mpc_tpu_torch.ops import cuda_legged_linearize as l1_mod
     from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
     from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
     from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS, graphed
@@ -1497,7 +1696,9 @@ def main() -> int:
                     eq_single_mod.solve_eq_lqr_plain)
     k4, k4_plain = (eq_fleet_mod.solve_eq_lqr_fleet,
                     eq_fleet_mod.solve_eq_lqr_fleet_plain)
-    kernels = (k1, k2, k3, k4)
+    l1 = l1_mod.legged_linearize
+    kernels = (k1, k2, k3, k4, l1)
+    idle = [0] * len(kernels)
 
     def reset_counts():
         for k in kernels:
@@ -1518,13 +1719,13 @@ def main() -> int:
         want_capture = [(WARMUP_CALLS + 1) * w for w in want]
         check(counts() == want_capture,
               f"{what}: the first call (warm-up calls and capture) launched "
-              f"K1..K4 {counts()}x; expected {want_capture}")
+              f"K1..K4, L1 {counts()}x; expected {want_capture}")
         reset_counts()
         tr, value = trace_counts(call)
         check(tr["kernels"] == want,
-              f"{what}: a profiled replay ran K1..K4 {tr['kernels']}x; "
+              f"{what}: a profiled replay ran K1..K4, L1 {tr['kernels']}x; "
               f"expected {want}")
-        check(tr["graph_launches"] == 1 and counts() == [0, 0, 0, 0],
+        check(tr["graph_launches"] == 1 and counts() == idle,
               f"{what}: the second call made {tr['graph_launches']} graph "
               f"launches and called the kernel wrappers {counts()}x; "
               "expected one replay")
@@ -1686,7 +1887,7 @@ def main() -> int:
     # call replays it (``graphed_run``).
     tr1, sol1 = graphed_run("centroidal batch-1 main path",
                             lambda: mpc.update_mpc(*one),
-                            [SQP_ITERS, 0, 0, 0])
+                            [SQP_ITERS, 0, 0, 0, 0])
     launches_k1 = tr1["kernels"][0]
     grf = sol1.contact_force  # (legs, 3, N)
     for name in ("contact_force", "foot_pos", "x_traj", "u_traj", "merit"):
@@ -1717,7 +1918,7 @@ def main() -> int:
     # phase 4).
     trf, solf = graphed_run("centroidal fleet main path",
                             lambda: mpc.update_mpc(*many),
-                            [0, SQP_ITERS, 0, 0])
+                            [0, SQP_ITERS, 0, 0, 0])
     launches_k2 = trf["kernels"][1]
     check(tuple(solf.contact_force.shape) == (FLEET, 4, 3, HORIZON),
           f"fleet GRF shape {solf.contact_force.shape}")
@@ -1744,15 +1945,20 @@ def main() -> int:
           "fz_minus_m_g_plus_zdd": fzf_resid})
 
 
-    # Phase 6: legged main path, batch 1, soft cone: one K3 launch.
+    # Phase 6: legged main path, batch 1, soft cone: one K3 launch and one
+    # L1 launch (one SQP iteration). Phases 6-8 hold the forces against an
+    # independent path only here: the f64 CPU solve linearizes by the plain
+    # version (jacfwd). The plain executor of phases 7 and 8 on the card
+    # runs L1 too, so there it checks the QP kernels alone; the fleet's
+    # element 0, the batch-1 scenario, is held to this solve.
     enable1 = lone[2]
     reset_counts()
     lsol = lsolver(*lone)
     torch.cuda.synchronize()
-    launches_k3 = k3.launches
-    check(counts() == [0, 0, 1, 0],
-          f"legged batch-1 main path launched K1..K4 {counts()}x; expected "
-          "[0, 0, 1, 0]")
+    launches_k3, launches_l1 = k3.launches, l1.launches
+    check(counts() == [0, 0, 1, 0, 1],
+          f"legged batch-1 main path launched K1..K4, L1 {counts()}x; "
+          "expected [0, 0, 1, 0, 1]")
     fz_lo, fz_hi = check_legged_forces(lsol, enable1, "legged batch 1")
     check(bool(torch.isfinite(lsol.gains_P).all()),
           "legged batch 1: K3 must return a finite value function")
@@ -1766,7 +1972,8 @@ def main() -> int:
     check(lsol.step_size.tolist() == lref64.step_size.tolist(),
           "legged batch 1: line-search steps differ from the f64 solve's")
     emit({"phase": "legged_batch1", "horizon": LEGGED_HORIZON,
-          "k3_launches": launches_k3, "total_fz_min_max": [fz_lo, fz_hi],
+          "k3_launches": launches_k3, "l1_launches": launches_l1,
+          "total_fz_min_max": [fz_lo, fz_hi],
           "mg": LEGGED_MG, "force_err_vs_f64_cpu": leg_err,
           "tolerance": TOL_LEG_F64, "step_size": lsol.step_size.tolist(),
           "convergence": int(lsol.convergence)})
@@ -1783,9 +1990,9 @@ def main() -> int:
     psol = lsolver_pyr(*lone)
     torch.cuda.synchronize()
     launches_k1_pyr = k1.launches
-    check(counts() == [1, 0, 0, 0],
-          f"legged pyramid main path launched K1..K4 {counts()}x; expected "
-          "[1, 0, 0, 0]")
+    check(counts() == [1, 0, 0, 0, 1],
+          f"legged pyramid main path launched K1..K4, L1 {counts()}x; "
+          "expected [1, 0, 0, 0, 1]")
     pfz_lo, pfz_hi = check_legged_forces(psol, enable1, "legged pyramid")
     check(bool(torch.isfinite(psol.gains_K).all()),
           f"legged pyramid: non-finite gains after {PYRAMID_IPM_ITERS} IPM "
@@ -1820,9 +2027,9 @@ def main() -> int:
     lsolf = lsolver(*lmany)
     torch.cuda.synchronize()
     launches_k4 = k4.launches
-    check(counts() == [0, 0, 0, 1],
-          f"legged fleet main path launched K1..K4 {counts()}x; expected "
-          "[0, 0, 0, 1]")
+    check(counts() == [0, 0, 0, 1, 1],
+          f"legged fleet main path launched K1..K4, L1 {counts()}x; "
+          "expected [0, 0, 0, 1, 1]")
     ffz_lo, ffz_hi = check_legged_forces(lsolf, lmany[2], "legged fleet")
     check(bool(torch.isnan(lsolf.gains_P).all())
           and bool(torch.isfinite(lsolf.gains_K).all()),
@@ -1844,6 +2051,11 @@ def main() -> int:
           "k4_launches": launches_k4, "total_fz_min_max": [ffz_lo, ffz_hi],
           "force_err_vs_plain_executor": lfleet_err,
           "element0_vs_batch1": lel0_err, "tolerance": TOL_LEG_PLAIN})
+
+    # Phase 8b: L1, the legged linearization kernel that every legged solve
+    # above ran once per SQP iteration.
+    l1_report = phase_legged_linearize(dev, card)
+    emit(l1_report)
 
     # Phase 9: times (CUDA events, median of 10 after warm-up).
     t_k1 = median_ms(lambda: k1(qp1, ipm))
@@ -2003,15 +2215,15 @@ def main() -> int:
     glsolver_pyr = graphed(lsolver_pyr, dev)
     graph_paths = (
         ("centroidal_batch1", solver, mpc.solver, one, "contact_force",
-         [SQP_ITERS, 0, 0, 0]),
+         [SQP_ITERS, 0, 0, 0, 0]),
         (f"centroidal_fleet{FLEET}", solver, mpc.solver, many,
-         "contact_force", [0, SQP_ITERS, 0, 0]),
+         "contact_force", [0, SQP_ITERS, 0, 0, 0]),
         ("legged_soft_batch1", lsolver, glsolver, lone_np.args, "forces",
-         [0, 0, 1, 0]),
+         [0, 0, 1, 0, 1]),
         ("legged_pyramid_batch1", lsolver_pyr, glsolver_pyr, lone_np.args,
-         "forces", [1, 0, 0, 0]),
+         "forces", [1, 0, 0, 0, 1]),
         (f"legged_fleet{LEGGED_FLEET}", lsolver, glsolver, lmany_np.args,
-         "forces", [0, 0, 0, 1]))
+         "forces", [0, 0, 0, 1, 1]))
     graph_report = {}
     for name, eager, graph_fn, args, out_name, want in graph_paths:
         graph_fn(*args)  # captures the graph if this signature has none
@@ -2027,8 +2239,8 @@ def main() -> int:
 
         reset_counts()
         tr, sol_g = trace_counts(replay)
-        check(tr["kernels"] == want and counts() == [0, 0, 0, 0],
-              f"{name}: a profiled replay ran K1..K4 {tr['kernels']}x and "
+        check(tr["kernels"] == want and counts() == idle,
+              f"{name}: a profiled replay ran K1..K4, L1 {tr['kernels']}x and "
               f"called their wrappers {counts()}x; expected {want} and none")
         check(tr["host_kernel_launches"] == 0 and tr["graph_launches"] == 1,
               f"{name}: a graphed solve made {tr['host_kernel_launches']} "
@@ -2069,7 +2281,7 @@ def main() -> int:
     stance = make_example_inputs(cfg, gait="stance")
     loop = build_centroidal_mpc_loop(cfg, scp, n_ticks=LOOP_TICKS,
                                      device=dev)
-    want_loop = [SQP_ITERS * (LOOP_TICKS + 1), 0, 0, 0]
+    want_loop = [SQP_ITERS * (LOOP_TICKS + 1), 0, 0, 0, 0]
     tr_loop, (xs, fs) = graphed_run("closed loop", lambda: loop(*stance),
                                     want_loop)
     check(tuple(xs.shape) == (LOOP_TICKS, sol1.x_traj.shape[-1])
@@ -2120,8 +2332,8 @@ def main() -> int:
                                                   run_dummy_loop)
     from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
     node_report = {}
-    for mode, ncfg, want in (("soft", lcfg, [0, 0, 1, 0]),
-                             ("pyramid", lcfg_pyr, [1, 0, 0, 0])):
+    for mode, ncfg, want in (("soft", lcfg, [0, 0, 1, 0, 1]),
+                             ("pyramid", lcfg_pyr, [1, 0, 0, 0, 1])):
         gait = GaitSchedule.stance(trot_template(NODE_TROT_CYCLE), t0=0.0)
         gait.phase_transition_stance_time = 0.1
         gait.insert_template(trot_template(NODE_TROT_CYCLE), insert_time=0.2)
@@ -2158,7 +2370,8 @@ def main() -> int:
         capture_counts = counts()
         want_run = [(WARMUP_CALLS + 1) * w for w in want]
         check(capture_counts == want_run and len(node_solve.graphs) == 1,
-              f"legged node ({mode}): K1..K4 launched {capture_counts}x and "
+              f"legged node ({mode}): K1..K4, L1 launched {capture_counts}x "
+              "and "
               f"{len(node_solve.graphs)} graphs captured over {res.solves} "
               f"solves; expected {want_run} and one graph")
         check(np.isfinite(res.states).all(),
@@ -2179,9 +2392,9 @@ def main() -> int:
         obs = SystemObservation(time=res.times[-1], state=res.states[-1])
         reset_counts()
         tr_node, _ = trace_counts(lambda: node.solve_fn(obs))
-        check(tr_node["kernels"] == want and counts() == [0, 0, 0, 0]
+        check(tr_node["kernels"] == want and counts() == idle
               and tr_node["graph_launches"] == 1,
-              f"legged node ({mode}): a profiled solve ran K1..K4 "
+              f"legged node ({mode}): a profiled solve ran K1..K4, L1 "
               f"{tr_node['kernels']}x in {tr_node['graph_launches']} graph "
               f"launches and called their wrappers {counts()}x; expected "
               f"{want} in one and none")
@@ -2197,7 +2410,7 @@ def main() -> int:
             "solve_ms_max": max(steady.samples_ms),
             "p50_within_20ms": steady.percentile_ms(50) <= BUDGET_MS,
             "p99_within_30ms": steady.percentile_ms(99) <= BUDGET_P99_MS,
-            "capture_counts_k1_k4": capture_counts, "replay": tr_node,
+            "capture_counts_k1_k4_l1": capture_counts, "replay": tr_node,
             "total_fz_min_max": fz_range, "mg": LEGGED_MG,
             "outside_pyramid": pyr_viol if mode == "pyramid" else None,
             "progress_x_m": float(res.states[-1, 6] - x0[6]),
@@ -2245,41 +2458,44 @@ def main() -> int:
     paths = [
         TimedPath("centroidal_batch1", solver, on_card(one),
                   lambda: mpc.solver(*one), lambda s: s.contact_force, 1,
-                  [SQP_ITERS, 0, 0, 0], lambda: k1(qp1, ipm),
+                  [SQP_ITERS, 0, 0, 0, 0], lambda: k1(qp1, ipm),
                   *seen(graph_report["centroidal_batch1"]), TOL_PRIMAL,
                   cent_flops),
         TimedPath(f"centroidal_fleet{FLEET}", solver, on_card(many),
                   lambda: mpc.solver(*many), lambda s: s.contact_force,
-                  FLEET, [0, SQP_ITERS, 0, 0], lambda: k2(qpf, ipm),
+                  FLEET, [0, SQP_ITERS, 0, 0, 0], lambda: k2(qpf, ipm),
                   *seen(graph_report[f"centroidal_fleet{FLEET}"]),
                   TOL_PRIMAL, cent_flops),
         TimedPath("legged_soft_batch1", lsolver, lone,
-                  lambda: glsolver(*lone_np.args), force, 1, [0, 0, 1, 0],
+                  lambda: glsolver(*lone_np.args), force, 1,
+                  [0, 0, 1, 0, 1],
                   lambda: k3(qpl, reg=leg_reg),
                   *seen(graph_report["legged_soft_batch1"]), TOL_LEG_PLAIN),
         TimedPath("legged_pyramid_batch1", lsolver_pyr, lone,
                   lambda: glsolver_pyr(*lone_np.args), force, 1,
-                  [1, 0, 0, 0], lambda: k1(qpp, ipm_pyr),
+                  [1, 0, 0, 0, 1], lambda: k1(qpp, ipm_pyr),
                   *seen(graph_report["legged_pyramid_batch1"]),
                   TOL_LEG_PLAIN),
         TimedPath(f"legged_fleet{LEGGED_FLEET}", lsolver, lmany,
                   lambda: glsolver(*lmany_np.args), force, LEGGED_FLEET,
-                  [0, 0, 0, 1], lambda: k4(qplf, reg=leg_reg),
+                  [0, 0, 0, 1, 1], lambda: k4(qplf, reg=leg_reg),
                   *seen(graph_report[f"legged_fleet{LEGGED_FLEET}"]),
                   TOL_LEG_PLAIN),
         TimedPath(f"legged_pyramid_fleet{LEGGED_FLEET_SMALL}", lsolver_pyr,
                   lsmall, lambda: glsolver_pyr(*lsmall_np), force,
-                  LEGGED_FLEET_SMALL, [0, 1, 0, 0],
+                  LEGGED_FLEET_SMALL, [0, 1, 0, 0, 1],
                   lambda: k2(qp_pyr_small, ipm_pyr),
                   *seen(pyr_report[f"batch{LEGGED_FLEET_SMALL}"]),
                   TOL_LEG_PLAIN),
         TimedPath("convex_trot_batch1", cvx_eager, on_card(cvx1),
-                  lambda: cvx_solve(*cvx1), lambda s: s[0], 1, [1, 0, 0, 0],
+                  lambda: cvx_solve(*cvx1), lambda s: s[0], 1,
+                  [1, 0, 0, 0, 0],
                   lambda: k1(qp_cvx1, cvx_ipm),
                   *seen(cvx_report["trot_batch1"]), TOL_PRIMAL),
         TimedPath(f"convex_trot_fleet{CONVEX_FLEET}", cvx_eager,
                   on_card(cvxf), lambda: cvx_solve(*cvxf), lambda s: s[0],
-                  CONVEX_FLEET, [0, 1, 0, 0], lambda: k2(qp_cvxf, cvx_ipm),
+                  CONVEX_FLEET, [0, 1, 0, 0, 0],
+                  lambda: k2(qp_cvxf, cvx_ipm),
                   *seen(cvx_report[f"trot_batch{CONVEX_FLEET}"]),
                   TOL_PRIMAL)]
     emit(phase_device_timing(dev, card, kit, paths))
@@ -2349,6 +2565,20 @@ def main() -> int:
          "bound_by": by4, "library_ms": None,
          f"k4_batch{LEGGED_FLEET_SMALL}_ms": t_k4_small,
          f"k4_batch{LEGGED_FLEET_SMALL}_bound_ms": b4s},
+        {"name": "legged_linearize", "route": "cuda",
+         "source": "cheeta_mpc_tpu_torch/csrc/legged_linearize.cu",
+         "replaces": None, "launches": launches_l1,
+         "max_rel_err": l1_report["worst_rel_err"],
+         "ms": l1_report["times"]["batch1"]["ms"],
+         "plain_ms": l1_report["times"]["batch1"]["plain_ms"],
+         "bound_ms": l1_report["times"]["batch1"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         f"batch{LEGGED_FLEET}_ms":
+             l1_report["times"][f"batch{LEGGED_FLEET}"]["ms"],
+         f"batch{LEGGED_FLEET}_plain_ms":
+             l1_report["times"][f"batch{LEGGED_FLEET}"]["plain_ms"],
+         f"batch{LEGGED_FLEET}_bound_ms":
+             l1_report["times"][f"batch{LEGGED_FLEET}"]["bound_ms"]},
     ]})
     # The run uses one card, whatever the host holds.
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
