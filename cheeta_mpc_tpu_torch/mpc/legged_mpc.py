@@ -304,12 +304,17 @@ def build_legged_solver(cfg: LeggedMpcConfig,
               dts=None):
         """References on the device, broadcast to the common batch shape,
         and the SQP's starting trajectory."""
-        x0 = _as_tensor(x0, dt_, dev)
-        x_ref = _as_tensor(x_ref_traj, dt_, dev)
-        enable = _as_tensor(enable_table, dt_, dev)
-        z_pos = _as_tensor(z_pos_ref, dt_, dev)
-        z_vel = _as_tensor(z_vel_ref, dt_, dev)
-        dts_v = None if dts is None else _as_tensor(dts, dt_, dev)
+        def dense(a):
+            # L1 reads dense rows, and a numpy view (a transposed table)
+            # keeps its strides on the device; a dense input stays as is.
+            return _as_tensor(a, dt_, dev).contiguous()
+
+        x0 = dense(x0)
+        x_ref = dense(x_ref_traj)
+        enable = dense(enable_table)
+        z_pos = dense(z_pos_ref)
+        z_vel = dense(z_vel_ref)
+        dts_v = None if dts is None else dense(dts)
         lead = torch.broadcast_shapes(
             x0.shape[:-1], x_ref.shape[:-2], enable.shape[:-2],
             z_pos.shape[:-2], z_vel.shape[:-2],

@@ -312,3 +312,26 @@ def test_launches_count_one_per_kernel_launch(monkeypatch):
     inp = examples.make_legged_example_inputs(cfg)
     lm.build_legged_solver(cfg, device="cpu").initial_qp(*inp.args)
     assert ll.legged_linearize.launches == before + 3 and len(lib.calls) == 4
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_strided_inputs_reach_the_kernel_dense(batch, monkeypatch):
+    """Inputs that arrive as strided views (a (N, 4) table read off a
+    (4, N) array, as a swing planner's grid may be) reach L1 as dense rows
+    with the strides of contiguous inputs, so an eager solve on the card
+    takes any numpy layout, as the CPU solve does."""
+    cfg = _cfg("pyramid")
+    lib = _stub(monkeypatch, cfg)
+    solve = lm.build_legged_solver(cfg, device="meta")
+    inp = examples.make_legged_example_inputs(cfg, batch=batch)
+
+    def strided(a):
+        a = np.asarray(a)
+        return np.ascontiguousarray(np.swapaxes(a, -1, -2)).swapaxes(-1, -2)
+
+    args = [strided(a) if np.asarray(a).ndim >= 2 else a for a in inp.args]
+    assert not np.asarray(args[3]).flags["C_CONTIGUOUS"]
+    solve.initial_qp(*args)
+    solve.initial_qp(*inp.args)
+    strided_call, dense_call = lib.calls
+    assert strided_call["strides"] == dense_call["strides"]
