@@ -19,9 +19,13 @@
 //   by cp.async while an earlier stage computes: one stage ahead in the
 //   factorization, two in the short stages of the sweeps; the copies are
 //   waited for just before the barrier that ends a stage.
-// - SPD inverses keep their tableau in registers, take one barrier per
-//   pivot (the owners of the next pivot's row and column pass them on), and
-//   get their equilibration scales from the phase that forms the matrix.
+// - SPD inverses up to 32 wide run on one warp's registers, one column
+//   per lane, with the rows rotated so that the pivot row is always the
+//   first register: no barrier per pivot and no test against the pivot
+//   index; the block's other warps wait at the one barrier that ends the
+//   inverse. Wider ones spread the tableau over the block and take one
+//   barrier per pivot. Both get their equilibration scales from the phase
+//   that forms the matrix.
 // - Passes over all stages split row products over lane groups and give
 //   column products one output per thread, so that a warp reads whole
 //   lines of global memory.
@@ -192,23 +196,38 @@ struct IpmArgs {
 
 #ifdef __CUDACC__
 
-constexpr int kInvMine = 8;  // tableau entries per thread: n * n <= 8 * threads
+// Widest SPD inverse that one warp's registers take (the rotated form);
+// wider ones take the block form.
+constexpr int kWarpInverseMax = 32;
+__host__ __device__ constexpr bool warp_inverse_takes(int n) {
+  return n <= kWarpInverseMax;
+}
 
-// out = inverse of sym(M), n x n, by the whole block: Jacobi equilibration,
-// Gauss-Jordan with the one-hot-shifted pivot column, the pivot row scaled
-// by the pivot's reciprocal, no refinement. sv = diag(M)^-1/2 is written by
-// the phase that forms M (inv_scale), before the barrier that ends it.
-// Each thread keeps the same few entries of the compact n x n tableau in
-// registers for the whole elimination (slot c of row i: left column c
-// until pivot c, right column n + c from then on; these are the columns a
-// pivot changes, so the operations are those on [S | I], in the same order:
-// ops/cuda_ipm_riccati.py::spd_inverse_gj). One barrier per pivot: the
-// owners of row and column j + 1 pass them to the next pivot through rowb
-// and colb (two of each, by parity). M and out may alias.
-static __device__ void spd_inverse(const float* M, float* out, int n,
-                                   const float* __restrict__ sv,
-                                   float* __restrict__ rowb,
-                                   float* __restrict__ colb) {
+constexpr int kInvMine = 8;  // block form: n * n <= 8 * threads
+
+// The SPD inverses of both forms compute inverse(sym(M)) as
+// D (D sym(M) D)^-1 D with the Jacobi scales D = sv = diag(M)^-1/2, which
+// the phase that forms M writes (inv_scale) before the barrier that ends
+// it: Gauss-Jordan on the compact n x n tableau (slot c of row i: left
+// column c until pivot c, right column n + c from then on; these are the
+// columns a pivot changes, so the operations are those on [S | I], in the
+// same order: ops/cuda_ipm_riccati.py::spd_inverse_gj), with the
+// one-hot-shifted pivot column, the pivot row times the pivot's
+// reciprocal, and no refinement. Row j times the reciprocal, not divided
+// by the pivot: the IEEE division leaves its fast path for a zero or
+// subnormal numerator (a sparse G has many), and the whole warp waits for
+// the slow one. Both forms apply the same operations to every entry, so
+// they give the same bits.
+
+// Block form, for n > kWarpInverseMax: each thread keeps the same few
+// entries of the tableau in registers for the whole elimination. One
+// barrier per pivot: the owners of row and column j + 1 pass them to the
+// next pivot through rowb and colb (two of each, by parity). M and out may
+// alias.
+static __device__ void block_spd_inverse(const float* M, float* out, int n,
+                                         const float* __restrict__ sv,
+                                         float* __restrict__ rowb,
+                                         float* __restrict__ colb) {
   const int tid = threadIdx.x, nt = blockDim.x;
   float v[kInvMine];
   int ii[kInvMine], cc[kInvMine];
@@ -229,9 +248,6 @@ static __device__ void spd_inverse(const float* M, float* out, int n,
   for (int j = 0; j < n; ++j) {
     const float *rb = rowb + (j & 1) * n, *cb = colb + (j & 1) * n;
     float *rbn = rowb + ((j + 1) & 1) * n, *cbn = colb + ((j + 1) & 1) * n;
-    // Row j times the pivot's reciprocal, not divided by the pivot: the
-    // IEEE division leaves its fast path for a zero or subnormal numerator
-    // (a sparse G has many), and the whole warp waits for the slow one.
     const float ipiv = 1.0f / rb[j];
 #pragma unroll
     for (int e = 0; e < kInvMine; ++e) {
@@ -252,6 +268,90 @@ static __device__ void spd_inverse(const float* M, float* out, int n,
   for (int e = 0; e < kInvMine; ++e)
     if (ii[e] >= 0) out[ii[e] * n + cc[e]] = sv[ii[e]] * v[e] * sv[cc[e]];
   __syncthreads();
+}
+
+// Warp form (n <= kMax <= 32), on the lanes of one warp: lane c holds
+// column c of the tableau, rotated so that u[t] is row j + t (mod kMax) at
+// pivot j. The pivot row is always u[0], so no entry is tested against j
+// (a dynamic register index would put the column in local memory). Every
+// row's pivot-column entry comes from lane j by shuffles, all in flight
+// together; the shifted column subtracts the 1 from the pivot row's entry
+// alone. Lane c != j takes rv = T[j][c] * ipiv and each row
+// fma(-colm, rv, T[i][c]); lane j (slot j turning into right column
+// n + j, which held e_j) takes rv = ipiv and e_j for T. The rows move down
+// by one as they are formed. Rows and lanes past n hold zeros, stay zero
+// and are not stored, so every n <= kMax gives the same bits at any
+// kMax >= n. The pivot loop stays rolled (code size); with kExact,
+// n == kMax is known to the compiler, which schedules the loop better.
+// M, out and sv are at shared offsets; M and out may alias.
+template <int kMax, bool kExact>
+static __device__ void warp_spd_inverse(int m_off, int out_off, int sv_off,
+                                        int n_) {
+  const int n = kExact ? kMax : n_;
+  extern __shared__ float smem[];
+  const float* M = smem + m_off;
+  const float* sv = smem + sv_off;
+  const int lane = threadIdx.x & 31;
+  const float sc = lane < n ? sv[lane] : 0.f;
+  float u[kMax];
+#pragma unroll
+  for (int t = 0; t < kMax; ++t)
+    u[t] = (t < n && lane < n)
+               ? sv[t] * (0.5f * (M[t * n + lane] + M[lane * n + t])) * sc
+               : 0.f;
+  for (int j = 0; j < n; ++j) {
+    const bool mine = lane == j;
+    float ci[kMax];
+#pragma unroll
+    for (int t = 0; t < kMax; ++t) ci[t] = __shfl_sync(0xffffffffu, u[t], j);
+    const float ipiv = 1.0f / ci[0];
+    const float rv = (mine ? 1.0f : u[0]) * ipiv;
+    // Row j, then rows j + 1 ... moved down by one as they are formed.
+    const float row_j = fmaf(-(ci[0] - 1.f), rv, mine ? 1.f : u[0]);
+#pragma unroll
+    for (int t = 0; t + 1 < kMax; ++t)
+      u[t] = fmaf(-ci[t + 1], rv, mine ? 0.f : u[t + 1]);
+    u[kMax - 1] = row_j;
+  }
+  __syncwarp();  // every lane has read M
+  if (lane < n) {
+    float* out = smem + out_off;
+#pragma unroll
+    for (int t = 0; t < kMax; ++t) {
+      int i = t + n;  // u[t] is row (t + n) mod kMax
+      if (i >= kMax) i -= kMax;
+      if (i < n) out[i * n + lane] = sv[i] * u[t] * sc;
+    }
+  }
+}
+
+// The warp form by warp 0 of the block, instantiated exactly at the
+// legged and centroidal widths (16 and 24) and once for every other
+// n <= kWarpInverseMax; the caller's barrier follows. Not inlined: the
+// products' registers and code stay as they are around it.
+static __device__ __noinline__ void warp_spd_inverse_n(int m_off,
+                                                       int out_off,
+                                                       int sv_off, int n) {
+  if (threadIdx.x >= 32) return;
+  if (n == 16) warp_spd_inverse<16, true>(m_off, out_off, sv_off, n);
+  else if (n == 24) warp_spd_inverse<24, true>(m_off, out_off, sv_off, n);
+  else warp_spd_inverse<kWarpInverseMax, false>(m_off, out_off, sv_off, n);
+}
+
+// out = inverse of sym(M), n x n, in the form that n takes; every array
+// lies in the block's shared memory, which starts at s. Ends with the
+// block's barrier: the other warps read out.
+static __device__ void spd_inverse(const float* s, const float* M,
+                                   float* out, int n,
+                                   const float* __restrict__ sv,
+                                   float* __restrict__ rowb,
+                                   float* __restrict__ colb) {
+  if (warp_inverse_takes(n)) {
+    warp_spd_inverse_n((int)(M - s), (int)(out - s), (int)(sv - s), n);
+    __syncthreads();
+  } else {
+    block_spd_inverse(M, out, n, sv, rowb, colb);
+  }
 }
 
 // sv entry of the inverse's equilibration, from a diagonal entry of M.
@@ -364,7 +464,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
     }
     __syncthreads();
     clk.mark(kPhProducts);
-    spd_inverse(Lam, Liw, nc, sv, rowb, colb);
+    spd_inverse(s, Lam, Liw, nc, sv, rowb, colb);
     clk.mark(kPhInverse);
     float* LiD = fLiD + (size_t)k * nc * nu;
     for (int idx = tid; idx < nc * nu; idx += nt) {
@@ -651,7 +751,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
       clk.mark(kPhProducts);
       if (nc == 0) {
         float* Gis = kFacShared ? Gik : Gt;
-        spd_inverse(G, Gis, nu, sv, rowb, colb);
+        spd_inverse(s, G, Gis, nu, sv, rowb, colb);
         clk.mark(kPhInverse);
         // K and H'K have the short sums (nu terms): small tiles, so that
         // more threads share them and each chain is short.
@@ -683,7 +783,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
         float* YLis = kFacShared ? YLik : YLiw;
         float* Lis = kFacShared ? Lik : Liw;
         float* Ws = kFacShared ? Gik : Ww;
-        spd_inverse(G, Gt, nu, sv, rowb, colb);
+        spd_inverse(s, G, Gt, nu, sv, rowb, colb);
         clk.mark(kPhInverse);
         for (int idx = tid; idx < nu * nc; idx += nt) {  // Y = G^-1 De'
           const int i = idx / nc, r = idx % nc;
@@ -704,7 +804,7 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
         }
         __syncthreads();
         clk.mark(kPhProducts);
-        spd_inverse(Lam, Lis, nc, sv, rowb, colb);
+        spd_inverse(s, Lam, Lis, nc, sv, rowb, colb);
         clk.mark(kPhInverse);
         // YLi = Y Li ; T = Ce - Y' H
         for (int idx = tid; idx < nu * nc + nc * nx; idx += nt) {

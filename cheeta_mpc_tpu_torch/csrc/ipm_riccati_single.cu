@@ -34,6 +34,12 @@ extern "C" void cheeta_ipm_launch_limits(int kernel, int* out) {
   out[2] = cheeta::kInvMine;
 }
 
+// The form of the kernels' SPD inverse at width n: 1 = one warp's
+// registers (n <= 32), 0 = spread over the block.
+extern "C" int cheeta_ipm_inverse_form(int n) {
+  return cheeta::warp_inverse_takes(n) ? 1 : 0;
+}
+
 // Shared-memory floats of one block: the iterate, work arrays and stage
 // slots, plus the Riccati factors when they are kept in shared memory.
 // dims is {N, nx, nu, ng, nc, iters} here and in the launchers.

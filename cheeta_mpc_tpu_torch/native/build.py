@@ -154,6 +154,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cheeta_ipm_factor_floats.restype = _LL
     lib.cheeta_ipm_launch_limits.argtypes = [_INT, ctypes.POINTER(_INT)]
     lib.cheeta_ipm_launch_limits.restype = None
+    lib.cheeta_ipm_inverse_form.argtypes = [_INT]
+    lib.cheeta_ipm_inverse_form.restype = _INT
+    lib.cheeta_spd_inverse_probe.argtypes = [_PTR, _PTR, _PTR, _INT, _INT,
+                                             _INT, _PTR]
+    lib.cheeta_spd_inverse_probe.restype = _INT
     for name in ("cheeta_ipm_riccati_single_occupancy",
                  "cheeta_ipm_riccati_fleet_occupancy"):
         fn = getattr(lib, name)

@@ -12,8 +12,11 @@ Source note.
   thread block does all of it, and a thread runs its instructions in
   order: every load that a use waits for costs its full latency.
   What the design does about it: a stage's data is copied into shared
-  memory by ``cp.async`` while an earlier stage computes; the SPD inverses
-  keep their tableau in registers and take one barrier per pivot; passes
+  memory by ``cp.async`` while an earlier stage computes; an SPD inverse
+  up to 32 wide runs on one warp's registers, one tableau column per lane,
+  rows rotated so that the pivot row is always the first register, and
+  takes no barrier per pivot (a wider one spreads its tableau over the
+  block and takes one barrier per pivot); passes
   over all stages read whole lines of global memory (row products split
   over lane groups, column products one output per thread); the iterate,
   directions, rolling P and work matrices stay in shared memory, the
@@ -60,6 +63,12 @@ PLACEMENTS = (("factors", True), ("none", False))
 # (csrc/ipm_riccati.cuh, PhaseClass); the kernel adds the whole launch last.
 PHASE_CLASSES = ("inverse", "products", "sweeps", "gradients", "bulk",
                  "stage_loads", "elementwise")
+# The kernels' SPD inverse runs on one warp's registers up to this width
+# (csrc/ipm_riccati.cuh::warp_spd_inverse), instantiated exactly at the
+# widths of WARP_INVERSE_EXACT and 32 wide for every other; wider ones take
+# the block form (block_spd_inverse).
+WARP_INVERSE_MAX = 32
+WARP_INVERSE_EXACT = (16, 24)
 
 
 def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
@@ -71,12 +80,14 @@ def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
     at the ~1/mu conditioning the barrier reaches, the f32 residual of a
     refinement step cancels catastrophically and makes the inverse worse.
 
-    Written on the compact n x n tableau that the kernels keep in one
-    warp's registers (csrc/ipm_riccati.cuh::warp_spd_inverse_n): after
-    pivot j, slot c > j holds column c of the left block and slot c <= j
-    column n + c of the right block of ``[S | I]``. Those are exactly the
-    columns that pivot j changes, so the operations and their order are
-    those of the elimination on the full ``n x 2n`` tableau."""
+    Written on the compact n x n tableau that the kernels keep in
+    registers (csrc/ipm_riccati.cuh: ``warp_spd_inverse`` on one warp up
+    to n = 32, ``block_spd_inverse`` over the block above): after pivot j,
+    slot c > j holds column c of the left block and slot c <= j column
+    n + c of the right block of ``[S | I]``. Those are exactly the columns
+    that pivot j changes, so the operations and their order are those of
+    the elimination on the full ``n x 2n`` tableau.
+    :func:`spd_inverse_rotated` follows the warp form's order."""
     n = M.shape[-1]
     if n == 0:
         return M
@@ -96,6 +107,48 @@ def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
                        T[..., j + 1:]], dim=-1)
         T = T - colm * row
     return s[..., :, None] * T * s[..., None, :]
+
+
+def spd_inverse_rotated(M: torch.Tensor) -> torch.Tensor:
+    """:func:`spd_inverse_gj` in the order of the kernels' one-warp form
+    (csrc/ipm_riccati.cuh::warp_spd_inverse), for n <= WARP_INVERSE_MAX:
+    the tableau padded with zeros to the instantiation's width k (n itself
+    at the widths of WARP_INVERSE_EXACT, else 32), lane c holding column c,
+    the rows rotated so that row 0 of the register file is always the
+    pivot row. At each pivot the column comes from lane j, the one-hot
+    shift falls on its first entry alone, lane c != j takes the pivot row
+    times the pivot's reciprocal, lane j the reciprocal itself over e_j,
+    and the rows move down by one as they are formed. Every entry of the
+    first n rows and lanes sees the operations of :func:`spd_inverse_gj`
+    in the same order, so the two agree bit for bit
+    (tests/test_torch_ipm_kernel_plain.py); the padding stays zero. Like
+    :func:`spd_inverse_gj` it rounds each update's product and difference
+    separately, where the kernels fuse them into one multiply-add."""
+    n = M.shape[-1]
+    if n == 0:
+        return M
+    _check(n <= WARP_INVERSE_MAX,
+           f"n={n}: the one-warp form takes n <= {WARP_INVERSE_MAX}")
+    k = n if n in WARP_INVERSE_EXACT else WARP_INVERSE_MAX
+    M = symmetrize(M)
+    s = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1),
+                                min=1e-30))
+    U = M.new_zeros(M.shape[:-2] + (k, k))  # (..., row slot t, lane c)
+    U[..., :n, :n] = s[..., :, None] * M * s[..., None, :]
+    lane_j = torch.eye(k, dtype=torch.bool, device=M.device)
+    first = torch.zeros(k, 1, dtype=M.dtype, device=M.device)
+    first[0] = 1.0  # the pivot row's place, and e_j in lane j
+    for j in range(n):
+        mine = lane_j[j]  # (k,): lane j
+        ci = U[..., :, j:j + 1]  # lane j's registers: the pivot column
+        ipiv = 1.0 / ci[..., :1, :]
+        rv = torch.where(mine, ipiv, U[..., :1, :] * ipiv)
+        base = torch.where(mine, first, U)
+        U = base - (ci - first) * rv
+        U = torch.cat([U[..., 1:, :], U[..., :1, :]], dim=-2)
+    # Slot t holds row (t + n) mod k; put row i back in slot i.
+    U = torch.roll(U, n, dims=-2)[..., :n, :n]
+    return s[..., :, None] * U * s[..., None, :]
 
 
 def _masked_eq(data: OcpQpData) -> OcpQpData:
@@ -155,6 +208,36 @@ def launch_limits(lib, entry: str, has_eq: bool = False):
     kernel = 0 if entry != FLEET_ENTRY else 2 if has_eq else 1
     lib.cheeta_ipm_launch_limits(kernel, out)
     return tuple(out)
+
+
+def inverse_form(lib, n: int) -> str:
+    """The form the kernels' SPD inverse takes at width ``n``, as the
+    library builds it: ``"warp"`` (one warp's registers) or ``"block"``."""
+    return "warp" if lib.cheeta_ipm_inverse_form(int(n)) else "block"
+
+
+def spd_inverse_probe(M: torch.Tensor, block_form: bool = False):
+    """Run csrc/spd_inverse_probe.cu, which no solve launches, on a
+    ``(batch, n, n)`` float32 CUDA tensor: each matrix inverted by one
+    block of K1's threads with the scales the kernels take, in the form the
+    kernels take at width n (``block_form`` False) or in the block form
+    (True). Returns the inverses and each block's clock64 cycles for the
+    inverse alone; synchronizes nothing."""
+    from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
+    _check(M.dim() == 3 and M.shape[-1] == M.shape[-2],
+           f"M has shape {tuple(M.shape)}, expected (batch, n, n)")
+    _check(M.is_cuda and M.dtype == torch.float32 and M.is_contiguous(),
+           "M must be a contiguous float32 CUDA tensor", TypeError)
+    lib = load_library()
+    out = torch.empty_like(M)
+    cycles = torch.empty(M.shape[0], dtype=torch.int64, device=M.device)
+    with torch.cuda.device(M.device):
+        code = lib.cheeta_spd_inverse_probe(
+            M.data_ptr(), out.data_ptr(), cycles.data_ptr(), M.shape[0],
+            M.shape[-1], int(block_form),
+            torch.cuda.current_stream(M.device).cuda_stream)
+    check_launch(lib, code, "cheeta_spd_inverse_probe")
+    return out, cycles
 
 
 def shared_memory_plan(lib, entry: str, shape, iters: int, device):
@@ -329,7 +412,9 @@ def launch_occupancy(entry: str, data: OcpQpData,
                      settings: IpmSettings) -> dict:
     """What the card makes of ``entry``'s launch at this problem's shape:
     the placement, threads and shared bytes per block, resident blocks per
-    SM, registers and spill bytes per thread."""
+    SM, registers and spill bytes per thread, and the form of the SPD
+    inverse at each width it runs (``nu``; ``nc`` with stage
+    equalities)."""
     from cheeta_mpc_tpu_torch.native.build import check_launch, load_library
     data, _ = _entry_data(entry, data)
     lib = load_library()
@@ -349,7 +434,10 @@ def launch_occupancy(entry: str, data: OcpQpData,
     return {"placement": placement, "threads": threads,
             "shared_bytes": smem,
             "blocks_per_sm": res[0], "registers": res[1],
-            "spill_bytes": res[2]}
+            "spill_bytes": res[2],
+            "inverse_form": {name: inverse_form(lib, n)
+                             for name, n in (("nu", shape[2]), ("nc", nc))
+                             if n}}
 
 
 def solve_ocp_qp_kernel(data: OcpQpData,

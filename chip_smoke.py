@@ -9,7 +9,10 @@ and of a batch (K2, ``ipm_riccati_fleet.cu``), the equality-constrained
 Riccati solve of one OCP-QP (K3, ``eq_riccati_single.cu``) and of a batch
 (K4, ``eq_riccati_fleet.cu``), and the legged SQP linearization (L1,
 ``legged_linearize.cu``, phase ``legged_linearize``) — and holds each
-against its plain PyTorch version on the card. Then it drives both main
+against its plain PyTorch version on the card; the interior-point kernels'
+SPD inverse also runs alone in a probe that no solve launches (phase
+``spd_inverse``: the one-warp form against the block form, bit for bit,
+with cycles per pivot). Then it drives both main
 paths through the entry points a user calls: the centroidal MPC (batch 1
 through K1, a fleet of 1024 scenarios through K2) and the legged SRBD MPC
 at the reference's scale (horizon 67, 24 states and inputs, 16
@@ -228,6 +231,13 @@ BENCH_TIMEOUT_S = 600  # the benchmark program, kernels already built
 # be exact zeros.
 TOL_L1 = 6e-6
 L1_TIMED_LAUNCHES = 20  # launches per CUDA graph when timing L1
+# The IPM kernels' SPD inverse on its own (csrc/spd_inverse_probe.cu): the
+# one-warp form against the block form, which must agree bit for bit at
+# every width the warp form takes (the operations on each entry are the
+# same), and the block form's use above 32. Widths: the SRB's nu = 12, the
+# legged nc = 16, nu = 24, the widest warp instance, and one wider.
+INVERSE_WIDTHS = (12, 16, 24, 32, 40)
+INVERSE_BATCH = 64  # matrices per width, half barrier-like, half sparse
 
 
 def emit(obj) -> None:
@@ -1472,6 +1482,68 @@ def phase_mesh(dev, card, kit, convex, solf):
             "health_of": f"centroidal fleet of {FLEET}"}
 
 
+def inverse_cases(n: int, count: int, seed: int) -> np.ndarray:
+    """``count`` SPD matrices of width n: half conditioned like the barrier
+    Hessian (a core of condition ~10 scaled by 1..1e3 on the diagonal,
+    cond ~1e6), half sparse like an input Hessian G (a diagonal with
+    couplings inside blocks of three and exact zeros elsewhere)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        if i % 2 == 0:
+            A = rng.normal(size=(n, n))
+            core = A @ A.T / n + 0.5 * np.eye(n)
+            d = np.logspace(0, 3, n)
+            rng.shuffle(d)
+            out.append(d[:, None] * core * d[None, :])
+        else:
+            M = np.diag(rng.uniform(1.0, 1e3, n))
+            for b in range(0, n - 1, 3):
+                e = min(b + 3, n)
+                B = rng.normal(size=(e - b, e - b))
+                M[b:e, b:e] += B @ B.T
+            out.append(M)
+    return np.stack(out).astype(np.float32)
+
+
+def phase_spd_inverse(dev, card) -> dict:
+    """The IPM kernels' SPD inverse alone, by the probe that no solve
+    launches: at each of INVERSE_WIDTHS the form the kernels take against
+    the block form on the same matrices, bit for bit, with the cycles of
+    each form per pivot (clock64 of thread 0, median over the blocks)."""
+    from cheeta_mpc_tpu_torch.native.build import load_library
+    from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as tk
+    lib = load_library()
+    rows = {}
+    for n in INVERSE_WIDTHS:
+        M = torch.as_tensor(inverse_cases(n, INVERSE_BATCH, 500 + n),
+                            device=dev)
+        kernel_form = tk.inverse_form(lib, n)
+        check(kernel_form == ("warp" if n <= tk.WARP_INVERSE_MAX
+                              else "block"),
+              f"the kernels take the {kernel_form} form of the SPD inverse "
+              f"at n = {n}")
+        got, cyc = tk.spd_inverse_probe(M, block_form=False)
+        ref, cyc_block = tk.spd_inverse_probe(M, block_form=True)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        check(differ == 0,
+              f"SPD inverse at n = {n}: the {kernel_form} form differs from "
+              f"the block form in {differ} entries")
+        check(bool(torch.isfinite(got).all()),
+              f"SPD inverse at n = {n}: not finite")
+        inv64 = torch.linalg.inv(M.double())
+        rel = float(((got.double() - inv64).abs().amax(dim=(-2, -1))
+                     / inv64.abs().amax(dim=(-2, -1))).max())
+        rows[f"n{n}"] = {
+            "form": kernel_form, "entries_differing_from_block": differ,
+            "cycles_per_pivot": float(cyc.median()) / n,
+            "block_cycles_per_pivot": float(cyc_block.median()) / n,
+            "rel_err_vs_f64_not_gated": rel}
+    return {"phase": "spd_inverse", "card": card, "batch": INVERSE_BATCH,
+            "widths": rows}
+
+
 def phase_legged_linearize(dev, card) -> dict:
     """L1 (``ops/cuda_legged_linearize.py``) against the solver's plain
     linearization (``initial_qp(..., plain=True)``, ``torch.func.jacfwd``)
@@ -1745,6 +1817,7 @@ def main() -> int:
           "ptxas": ptxas})
     check(build.build_seconds is not None,
           "the kernels were not built from the sources in this run")
+    emit(phase_spd_inverse(dev, card))
 
     ipm = IpmSettings(iters=IPM_ITERS)
     scp = ScpSettings(iterations=SQP_ITERS, ipm=ipm)  # default: the kernels

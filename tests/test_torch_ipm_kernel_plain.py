@@ -188,6 +188,55 @@ def test_gauss_jordan_inverse_matches_pallas_interpret_at_barrier_conditioning(
     assert err <= 5e-6 and err64 <= 5e-6
 
 
+def _sparse_g(n):
+    """An input Hessian as sparse as the legged G: a diagonal spread over
+    1..1e3 with couplings inside blocks of three and exact zeros
+    elsewhere."""
+    rng = np.random.default_rng(200 + n)
+    M = np.diag(rng.uniform(1.0, 1e3, n))
+    for b in range(0, n - 1, 3):
+        e = min(b + 3, n)
+        B = rng.normal(size=(e - b, e - b))
+        M[b:e, b:e] += B @ B.T
+    return M
+
+
+@pytest.mark.parametrize("kind", ["barrier", "sparse"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 12, 16, 24, 32])
+def test_rotated_warp_order_equals_the_compact_inverse_bit_for_bit(n, dtype,
+                                                                  kind):
+    """The one-warp form's order of operations (rows rotated so that the
+    pivot row comes first, the one-hot shift on the pivot row's entry
+    alone, lane j's slot turning into e_j, the padding to the 16-, 24- or
+    32-wide instance) applies to every entry the operations of
+    ``spd_inverse_gj`` in the same order: the two agree in every bit, at
+    barrier conditioning (~1e6) and on a sparse G with zero entries, one
+    at a time and batched."""
+    M = _barrier_like_spd(n)[0] if kind == "barrier" else _sparse_g(n)
+    M = torch.as_tensor(M, dtype=dtype)
+    if kind == "barrier" and n > 1:
+        assert np.linalg.cond(M.double().numpy()) > 1e5
+    if kind == "sparse" and n > 2:
+        assert int((M == 0).sum()) > n
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    ref, got = tk.spd_inverse_gj(M), tk.spd_inverse_rotated(M)
+    assert torch.equal(got.view(ints), ref.view(ints))
+    assert bool(torch.isfinite(got).all())
+    Mb = torch.stack([M, 2.0 * M, M + torch.eye(n, dtype=dtype)])
+    gotb, refb = tk.spd_inverse_rotated(Mb), tk.spd_inverse_gj(Mb)
+    assert torch.equal(gotb.view(ints), refb.view(ints))
+
+
+def test_rotated_warp_order_refuses_widths_past_the_warp():
+    """Past WARP_INVERSE_MAX the kernels take the block form, whose order
+    ``spd_inverse_gj`` is; the warp form's model refuses such a width."""
+    M = torch.eye(tk.WARP_INVERSE_MAX + 1, dtype=torch.float64)
+    with pytest.raises(ValueError, match="one-warp form"):
+        tk.spd_inverse_rotated(M)
+    assert torch.equal(tk.spd_inverse_gj(M), M)
+
+
 def _shared_cd_batch(seed, batch=4):
     """``batch`` problems with one set of constraint matrices C/D; each
     problem's bounds are placed around its own reference rollout, so every
