@@ -10,8 +10,8 @@ place of the Pallas kernels.
 Ported: everything the JAX package does — the centroidal MPC main path,
 the legged SRBD MPC, the real-time planning path on top of them, the
 deployed runtime around it, the convex SRB MPC, the second equality mode,
-the condensed backend, the scenario mesh, the device timing with the work
-counts, and the benchmark program (the root ``bench.py``'s counterpart):
+the condensed backend, the scenario mesh, and the device timing with the
+work counts:
 
 - ``core.types``            problem/solution containers
 - ``ops.linalg_small``      SPD inverse of the torch executor
@@ -72,11 +72,11 @@ counts, and the benchmark program (the root ``bench.py``'s counterpart):
 - ``parallel.mesh``         scenario batches over devices and processes
                             (``torch.distributed``: gloo on the CPU, nccl on
                             the cards)
-- ``bench``                 the benchmark program on the card
-                            (``python3 -m cheeta_mpc_tpu_torch.bench``): the
-                            root ``bench.py``'s paths, one JSON line last
 - ``examples``              scenario generators (numpy)
 - ``convert``               numpy/dict -> port objects, for cross-package tests
+
+The port's benchmark is ``mpcbench/`` with ``BENCHMARK.json``, outside the
+package; ``chip_smoke.py`` is the card's correctness gate.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when no
 card is present instead of carrying on on the CPU. This package imports

@@ -87,7 +87,8 @@ def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
     n + c of the right block of ``[S | I]``. Those are exactly the columns
     that pivot j changes, so the operations and their order are those of
     the elimination on the full ``n x 2n`` tableau.
-    :func:`spd_inverse_rotated` follows the warp form's order."""
+    tests/test_torch_ipm_kernel_plain.py holds a model of the warp form's
+    order to it, bit for bit."""
     n = M.shape[-1]
     if n == 0:
         return M
@@ -107,48 +108,6 @@ def spd_inverse_gj(M: torch.Tensor) -> torch.Tensor:
                        T[..., j + 1:]], dim=-1)
         T = T - colm * row
     return s[..., :, None] * T * s[..., None, :]
-
-
-def spd_inverse_rotated(M: torch.Tensor) -> torch.Tensor:
-    """:func:`spd_inverse_gj` in the order of the kernels' one-warp form
-    (csrc/ipm_riccati.cuh::warp_spd_inverse), for n <= WARP_INVERSE_MAX:
-    the tableau padded with zeros to the instantiation's width k (n itself
-    at the widths of WARP_INVERSE_EXACT, else 32), lane c holding column c,
-    the rows rotated so that row 0 of the register file is always the
-    pivot row. At each pivot the column comes from lane j, the one-hot
-    shift falls on its first entry alone, lane c != j takes the pivot row
-    times the pivot's reciprocal, lane j the reciprocal itself over e_j,
-    and the rows move down by one as they are formed. Every entry of the
-    first n rows and lanes sees the operations of :func:`spd_inverse_gj`
-    in the same order, so the two agree bit for bit
-    (tests/test_torch_ipm_kernel_plain.py); the padding stays zero. Like
-    :func:`spd_inverse_gj` it rounds each update's product and difference
-    separately, where the kernels fuse them into one multiply-add."""
-    n = M.shape[-1]
-    if n == 0:
-        return M
-    _check(n <= WARP_INVERSE_MAX,
-           f"n={n}: the one-warp form takes n <= {WARP_INVERSE_MAX}")
-    k = n if n in WARP_INVERSE_EXACT else WARP_INVERSE_MAX
-    M = symmetrize(M)
-    s = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1),
-                                min=1e-30))
-    U = M.new_zeros(M.shape[:-2] + (k, k))  # (..., row slot t, lane c)
-    U[..., :n, :n] = s[..., :, None] * M * s[..., None, :]
-    lane_j = torch.eye(k, dtype=torch.bool, device=M.device)
-    first = torch.zeros(k, 1, dtype=M.dtype, device=M.device)
-    first[0] = 1.0  # the pivot row's place, and e_j in lane j
-    for j in range(n):
-        mine = lane_j[j]  # (k,): lane j
-        ci = U[..., :, j:j + 1]  # lane j's registers: the pivot column
-        ipiv = 1.0 / ci[..., :1, :]
-        rv = torch.where(mine, ipiv, U[..., :1, :] * ipiv)
-        base = torch.where(mine, first, U)
-        U = base - (ci - first) * rv
-        U = torch.cat([U[..., 1:, :], U[..., :1, :]], dim=-2)
-    # Slot t holds row (t + n) mod k; put row i back in slot i.
-    U = torch.roll(U, n, dims=-2)[..., :n, :n]
-    return s[..., :, None] * U * s[..., None, :]
 
 
 def _masked_eq(data: OcpQpData) -> OcpQpData:

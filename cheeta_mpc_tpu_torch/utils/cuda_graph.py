@@ -27,6 +27,11 @@ the host one graph launch.
   graph and returns copies of its outputs, so that a later call never
   changes an earlier result. The graph packs its outputs into one buffer
   per dtype, so a call issues copies and one graph launch, no kernel.
+- A numpy input is read once, by numpy on the calling thread, straight
+  into its staging view whatever its strides; its signature is read off
+  the array without a copy. A copy split over the intra-op threads waits
+  for the slowest of them, and on a host whose cores are shared that wait
+  is long and uneven.
 - A replay calls no kernel wrapper, so the wrappers' launch counters count
   the warm-up calls and the capture only; a replay's kernels are counted by
   name in a profiler trace (``chip_smoke.py``).
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Optional
@@ -116,9 +122,25 @@ def _host_tensor(a) -> torch.Tensor:
     return a
 
 
+@functools.lru_cache(maxsize=None)
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
 def _leaf_signature(a):
+    """A leaf's shape and torch dtype, read without copying the leaf."""
+    if isinstance(a, np.ndarray):
+        return tuple(a.shape), _torch_dtype(a.dtype)
     t = _host_tensor(a)
     return tuple(t.shape), t.dtype
+
+
+def _stage(src, stage: torch.Tensor) -> None:
+    """Copy a host leaf into its staging view (module docstring)."""
+    if isinstance(src, np.ndarray):
+        np.copyto(stage.numpy(), src)
+    else:
+        stage.copy_(_host_tensor(src))
 
 
 def _signature(args, kwargs):
@@ -246,7 +268,7 @@ class _Entry:
             if isinstance(src, torch.Tensor) and src.is_cuda:
                 on_card.append((src, dst))
             else:
-                stage.copy_(_host_tensor(src))
+                _stage(src, stage)
                 from_host.add(dst.dtype)
         for dtype in from_host:
             self.inputs[dtype].copy_(self.staging[dtype], non_blocking=True)

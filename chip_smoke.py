@@ -1,56 +1,67 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""The PyTorch/CUDA port's correctness gates on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``cheeta_mpc_tpu_torch/csrc/`` — the
-Riccati interior-point solve of one OCP-QP (K1, ``ipm_riccati_single.cu``)
-and of a batch (K2, ``ipm_riccati_fleet.cu``), the equality-constrained
-Riccati solve of one OCP-QP (K3, ``eq_riccati_single.cu``) and of a batch
-(K4, ``eq_riccati_fleet.cu``), and the legged SQP linearization (L1,
-``legged_linearize.cu``, phase ``legged_linearize``) — and holds each
-against its plain PyTorch version on the card; the interior-point kernels'
-SPD inverse also runs alone in a probe that no solve launches (phase
-``spd_inverse``: the one-warp form against the block form, bit for bit,
-with cycles per pivot). Then it drives both main
-paths through the entry points a user calls: the centroidal MPC (batch 1
-through K1, a fleet of 1024 scenarios through K2) and the legged SRBD MPC
-at the reference's scale (horizon 67, 24 states and inputs, 16
-stage-equality rows, linearized by L1: batch 1 through K3, pyramid mode at
-batch 1 through K1 with stage equalities, a fleet of 512 scenarios through
-K4). It checks the results, times kernels and solves with
-CUDA events, and counts what one solve costs the host. Then it drives the
-real-time planning path: each of those five solves as one CUDA graph per
-solve against its eager run (``graph_vs_eager``: results, host launches,
-kernels by name in a profiled replay, p50/p99 solve time), the 20-tick
-receding-horizon loop as one graph (``closed_loop``) and the legged planning
-node in the lock-step dummy loop (``legged_node``). Then the last slice of
-the port: the batched legged pyramid mode at batch 128 and 512 through K2
-with stage equalities (``pyramid_fleet``), the convex SRB MPC at one
-scenario (K1) and 4096 (K2), standing and trot (``convex_mpc``), the
-device time per solve of eight of those paths by the slope over chained
-CUDA-graph replays (``device_timing``, ``utils/device_timing.py``), the
-circular-kinematics OCP in both equality modes and the centroidal MPC under
-the condensed backend (``projected_condensed``), and the convex fleet
-sharded over ``parallel.mesh.make_mesh`` with the fleet's health reduced
-through a one-process nccl group (``mesh``). Then the DDP planning
-node (``solver='ddp'``) in the same loop (``legged_ddp``), and the deployed
-topology (``launch``): ``cli.launch`` with its planner and plant in two
-processes over the shared-memory bus (soft cone with a live gait switch,
-pyramid cone), and this script as the tracking side against a spawned
-planner process, round trips timed, the trajectory held against the same
-loop in-process. Last, the port's benchmark program in a child process
-that never started a profiler (``bench``: ``python3 -m
-cheeta_mpc_tpu_torch.bench``, its batch-1 host p50s beside this process's
-graphed ones). It prints one JSON object per line. The last line is
+The benchmark (``BENCHMARK.json``, ``mpcbench/``) times the port; this
+script checks on the card what the benchmark cannot: each hand-written
+kernel against its plain PyTorch version, the paths that no cell of the
+benchmark runs, and the invariants of those that it does. ``main`` is the
+list of phases, in the order they run:
+
+- ``device``, ``build``: the card, and the kernels built from
+  ``cheeta_mpc_tpu_torch/csrc/`` in this run (K1, K2: the Riccati
+  interior-point solve of one OCP-QP and of a batch; K3, K4: the
+  equality-constrained Riccati solve of one and of a batch; L1: the legged
+  SQP linearization), with ptxas's registers and spills.
+- ``spd_inverse``: the IPM kernels' SPD inverse alone, by a probe that no
+  solve launches: the one-warp form against the block form, bit for bit.
+- ``kernel_vs_plain``: K1..K4 against their plain versions on the main
+  paths' QPs and on seeded instances that reach their other code paths.
+- ``main_path_batch1``, ``main_path_fleet``, ``legged_batch1``,
+  ``legged_pyramid_batch1``, ``legged_fleet``: the centroidal MPC (batch 1
+  through K1, a fleet of 1024 through K2) and the legged SRBD MPC at the
+  reference's scale (horizon 67, 24 states and inputs, 16 stage-equality
+  rows; batch 1 through K3, pyramid cone through K1, a fleet of 512
+  through K4) through the entry points a user calls: launches per solve,
+  forces against the f64 CPU solve or the plain executor, swing legs at
+  exactly 0, the vertical force, the pyramid.
+- ``legged_linearize``: L1 against its plain version (``jacfwd``).
+- ``kernel_phases``, ``occupancy``, ``k4_batch_sweep``: cycles by phase
+  class inside each kernel (section timers) beside an untimed launch's ms,
+  blocks per SM, registers and spills, and K4 at batch 128 to 2048.
+- ``graph_vs_eager``: each main path as one CUDA graph per solve against
+  its eager run: equal bit for bit, kernels by name in a profiled replay,
+  0 host kernel launches and 1 graph launch per solve.
+- ``closed_loop``: the 20-tick receding-horizon loop as one graph.
+- ``legged_node``: the legged planning node in the lock-step loop.
+- ``pyramid_fleet``: the batched pyramid mode through K2 with stage
+  equalities at 128 and 512.
+- ``convex_mpc``: the convex SRB MPC at one scenario (K1) and 4096 (K2).
+- ``device_timing``: device ms per solve by the slope over chained CUDA
+  graph replays (``utils/device_timing.py``) on eight of those paths.
+- ``projected_condensed``: the second equality mode and the condensed
+  backend.
+- ``mesh``: the convex fleet sharded over ``parallel.mesh.make_mesh``, the
+  fleet's health through a one-process nccl group.
+- ``legged_ddp``: the planning node with the DDP solver.
+- ``launch``: the deployed topology, ``cli.launch`` with its planner and
+  plant in two processes over the shared-memory bus, and this script as
+  the tracking side against a spawned planner process.
+
+What a cell of the benchmark already measures is left to it: the times
+read here are of paths that no cell runs, of the kernels' sections, or
+what a gate needs (``device_timing`` holds its slope against
+``graph_vs_eager``'s graphed p50). It prints one JSON object per line. The
+last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
-Any failed phase raises, so the script exits non-zero and prints no result
+Any failed gate raises, so the script exits non-zero and prints no result
 line; without a CUDA device it fails at once. Needs no network. Besides
-``nvidia-smi`` and the compilers it starts the benchmark's, the launcher's
-and the planner's processes, each in a process group of its own that it
-waits for or kills.
+``nvidia-smi`` and the compilers it starts the launcher's and the
+planner's processes, each in a process group of its own that it waits for
+or kills.
 """
 
 from __future__ import annotations
@@ -65,8 +76,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
-import warnings
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -96,6 +105,11 @@ TOL_DUAL = 1e-3
 # Ground-reaction forces of a full f32 kernel solve against the f64 solve:
 # the JAX package's bound for its f32 kernel path.
 TOL_GRF = 5e-2
+# The batch-1 kernel solve against the same solve through the plain
+# executor on the card: the root bench.py's bound for that pair
+# (bench.py:275). Both run the same f32 arithmetic, measured 2e-9 N apart
+# on an H100.
+TOL_KERNEL_VS_PLAIN = 1e-2
 
 
 # The legged task at the reference's scale: horizon 1.0 s / dt 0.015, one
@@ -128,13 +142,13 @@ TOL_PYRAMID = 1e-3  # stance forces inside the friction pyramid, N
 
 # The graphed paths (one CUDA graph per solve signature, utils/cuda_graph.py).
 GRAPH_SOLVES = 200  # host-clock graphed solves per path, for p50 / p99
-EAGER_SOLVES = 50  # host-clock eager solves per path (beside the graphed)
 BUDGET_MS, BUDGET_P99_MS = 20.0, 30.0  # 50 Hz replanning; BASELINE's p99
 # The kernels as a profiler trace names them: the QP kernels K1..K4 and
 # L1, the legged linearization (one launch per legged SQP iteration).
 KERNEL_NAMES = ("ipm_riccati_single_kernel", "ipm_riccati_fleet_kernel",
                 "eq_riccati_single_kernel", "eq_riccati_fleet_kernel",
                 "legged_linearize_kernel")
+IDLE = [0] * len(KERNEL_NAMES)  # launches by the wrappers during a replay
 LOOP_TICKS = 20  # the on-device n-tick loop (build_centroidal_mpc_loop)
 # The legged planning node: trot at 0.25 m/s after 0.2 s of stance, driven
 # for 1.2 s by the lock-step dummy loop with the plant stepping every 5 ms
@@ -216,7 +230,6 @@ CONDENSED_SOLVES = 50  # host-clock graphed solves per backend and batch
 # the margins leave room for the host clock's spread.
 CHAIN_BATCH1, CHAIN_FLEET = (4, 20), (2, 8)
 SLOPE_OVER_P50, SLOPE_UNDER_KERNELS = 1.05, 0.9
-BENCH_TIMEOUT_S = 600  # the benchmark program, kernels already built
 # L1, the legged linearization kernel, against its plain version
 # (torch.func.jacfwd) on the same CUDA tensors, each array's widest gap
 # relative to its largest entry. Dual numbers apply jacfwd's own JVP rule
@@ -292,20 +305,6 @@ def events_ms(fn, n: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
-def wall_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
-    """Median host time of ``fn()`` ending in a synchronize, in ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times)
-
-
 def random_qp(seed: int, device, N=12, nx=12, nu=8, ng=6, nc=3):
     """A seeded, strictly convex OCP-QP with inequality rows (zero is
     strictly feasible for them) and, for nc > 0, masked stage equalities.
@@ -343,52 +342,6 @@ def random_qp(seed: int, device, N=12, nx=12, nu=8, ng=6, nc=3):
             "mask": mask_eq,
         }
     return qp_data_from_numpy(d, dtype="float32", device=device)
-
-
-def host_cost(solve) -> dict:
-    """What one ``solve()`` costs the host, from a ``torch.profiler`` pass:
-    kernel launches, waits for the stream, host-to-device copies, and the
-    device time of everything it launched (the device's own events: a host
-    operator's self device time is that of the kernels it launched, which
-    are events of their own)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    solve()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        solve()
-        torch.cuda.synchronize()
-    events = {e.key: e for e in prof.key_averages()}
-
-    def count(key):
-        return events[key].count if key in events else 0
-
-    return {"kernel_launches": count("cudaLaunchKernel"),
-            # one of the waits is the synchronize that ends the window
-            "host_waits": (count("cudaStreamSynchronize")
-                           + count("cudaDeviceSynchronize")),
-            "host_to_device_copies": count("cudaMemcpyAsync"),
-            "device_ms": sum(e.self_device_time_total
-                             for e in events.values()
-                             if e.device_type == DeviceType.CUDA) / 1e3}
-
-
-def sync_warnings(solve) -> int:
-    """Host waits that ``torch.cuda.set_sync_debug_mode("warn")`` reports
-    during one ``solve()`` (a prototype feature: it does not see every
-    synchronizing call, so ``host_cost`` counts them from the profile too)."""
-    solve()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            solve()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def compare_eq_solutions(sol, ref, tol_rel: float, value_function: bool,
@@ -541,7 +494,7 @@ def node_gait():
     return gait
 
 
-def phase_legged_ddp(dev, card, lcfg, sqp_observations) -> dict:
+def phase_legged_ddp(kit, sqp_observations) -> dict:
     """The legged planning node with the DDP solver (``solver='ddp'``) at
     the legged node's width, in two runs.
 
@@ -569,6 +522,7 @@ def phase_legged_ddp(dev, card, lcfg, sqp_observations) -> dict:
                                                   run_dummy_loop)
     from cheeta_mpc_tpu_torch.solvers.ddp import DdpSettings
     from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
+    dev, card, lcfg = kit.dev, kit.card, kit.lcfg
     settings = PlannerSettings(solver="ddp")
     x0 = default_stance_state(lcfg)
 
@@ -1006,15 +960,16 @@ def check_per_problem_cd(kit, qp, sk, ipm, what) -> dict:
     return {"copies_equal_shared": bit, "scaled_k2_vs_plain": err}
 
 
-def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
-                        lcfg_pyr, lmany_np):
+def phase_pyramid_fleet(kit) -> dict:
     """The batched legged pyramid mode (N=67, 16 stage equalities and 20
     pyramid rows per problem) through the fleet kernel's instantiation with
     the equality elimination, at batch 128 and 512."""
+    dev, card, ipm_pyr = kit.dev, kit.card, kit.ipm_pyr
+    lsolver_pyr, glsolver_pyr = kit.lsolver_pyr, kit.glsolver_pyr
     report = {"phase": "pyramid_fleet", "card": card,
               "horizon": LEGGED_HORIZON, "ipm_iters": PYRAMID_IPM_ITERS}
     for batch in PYRAMID_FLEETS:
-        args_np = tuple(a[:batch] for a in lmany_np.args)
+        args_np = tuple(a[:batch] for a in kit.lmany_np.args)
         args = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
                      for a in args_np)
         qp = contig(lsolver_pyr.initial_qp(*args))
@@ -1037,8 +992,9 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
               "differ")
         fz_lo, fz_hi = check_legged_forces(sol, args[2],
                                            f"pyramid fleet {batch}")
-        viol = pyramid_violation(sol.forces, args[2], lcfg_pyr.friction_mu,
-                                 lcfg_pyr.force_max)
+        viol = pyramid_violation(sol.forces, args[2],
+                                 kit.lcfg_pyr.friction_mu,
+                                 kit.lcfg_pyr.force_max)
         check(viol <= TOL_PYRAMID, f"pyramid fleet {batch}: a stance force "
               f"leaves the pyramid by {viol} N")
         kit.reset_counts()
@@ -1074,7 +1030,7 @@ def phase_pyramid_fleet(dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr,
     occ["waves"] = -(-LEGGED_FLEET // (sms * occ["blocks_per_sm"]))
     check(occ["blocks_per_sm"] >= 1, f"K2 with stage equalities: {occ}")
     report.update({"kernel": row, "occupancy": occ})
-    return report, row
+    return report
 
 
 def convex_scenarios(batch: int, gait: str, off_centre: bool = False):
@@ -1097,13 +1053,16 @@ def convex_scenarios(batch: int, gait: str, off_centre: bool = False):
     return x0, ref, NOMINAL_FEET, enable
 
 
-def phase_convex_mpc(dev, card, kit):
+def phase_convex_mpc(kit):
     """The convex SRB MPC (BASELINE config 2) through ``build_convex_mpc``:
-    one scenario (K1) and 4096 (K2), standing and trot, as CUDA graphs."""
+    one scenario (K1) and 4096 (K2), standing and trot, as CUDA graphs.
+    Returns the report, the configuration and IPM settings, and the solver
+    (the trot's)."""
     from cheeta_mpc_tpu_torch.models.srb import GRAVITY, SrbParams
     from cheeta_mpc_tpu_torch.mpc.convex_mpc import (ConvexMpcConfig,
                                                      build_convex_mpc)
     from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+    dev, card = kit.dev, kit.card
     params = SrbParams(**SRB_PARAMS)
     cfg = ConvexMpcConfig(params=params, horizon=CONVEX_HORIZON,
                           dt=CONVEX_DT)
@@ -1215,7 +1174,7 @@ def phase_convex_mpc(dev, card, kit):
             "p50_within_20ms": wall["p50"] <= BUDGET_MS,
             "p99_within_30ms": wall["p99"] <= BUDGET_P99_MS})
     report["kernels"] = rows
-    return report, rows, (cfg, ipm), solve
+    return report, (cfg, ipm), solve
 
 
 class TimedPath(NamedTuple):
@@ -1236,22 +1195,96 @@ class TimedPath(NamedTuple):
     flops: Optional[float] = None  # centroidal_solve_flops, for mfu_pct
 
 
-def phase_device_timing(dev, card, kit, paths) -> dict:
-    """Device ms per solve of each path by the slope over chained CUDA-graph
-    replays (``utils.device_timing.time_chain``), beside its graphed host
-    p50 and its profiled replay's device ms from this run. Gated: the
-    slope is positive and finite; the host issued every timed chain call
-    in less time than the device ran it (so the device did not wait for
-    the launch, ``time_chain``); the slope is at most ``SLOPE_OVER_P50``
-    times the host p50 and at least ``SLOPE_UNDER_KERNELS`` times the device time of the
-    path's kernel launches per solve by CUDA events (``events_ms``); each
-    chain ran the path's kernels once per solve in its warm-up calls and
-    capture; the k_big chain's last solve equals one graphed solve on the
-    same inputs within the kernel's tolerance against its plain version
-    (the nudge changes nothing a solve can see)."""
+def timed_paths(kit, graph, pyramid, convex, convex_setup, convex_solve):
+    """The paths of phase ``device_timing``: the five of
+    ``graph_vs_eager``, the pyramid fleet of 128 of ``pyramid_fleet`` and
+    the convex trot at 1 and 4096 of ``convex_mpc``, each with those
+    phases' readings of it. The DDP solve (one graph of ~160,000 nodes) is
+    left out: a chain would be k times that."""
+    def seen(entry):  # a path's graphed host p50 and replay device ms
+        return entry["graphed_ms"]["p50"], entry["replay"]["device_ms"]
+
+    def force(sol):
+        return sol.forces
+
+    k1, k2, k3, k4 = kit.k1, kit.k2, kit.k3, kit.k4
+    mpc, one, many = kit.mpc, kit.one, kit.many
+    lone_np, lmany_np = kit.lone_np, kit.lmany_np
+    glsolver, glsolver_pyr = kit.glsolver, kit.glsolver_pyr
+    paths = graph["paths"]
+    cent_flops = centroidal_solve_flops(*shape_of(kit.qp1), kit.qp1.con.ng,
+                                        SQP_ITERS, IPM_ITERS)
+    lsmall_np = tuple(a[:LEGGED_FLEET_SMALL] for a in lmany_np.args)
+    qp_pyr_small = contig(kit.lsolver_pyr.initial_qp(*kit.lsmall))
+    cvx1, cvxf = (convex_scenarios(b, "trot") for b in (1, CONVEX_FLEET))
+    qp_cvx1, qp_cvxf = (contig(convex_solve.initial_qp(*a))
+                        for a in (cvx1, cvxf))
+    cvx_eager, cvx_ipm = convex_solve.__wrapped__, convex_setup[1]
+    return [
+        TimedPath("centroidal_batch1", kit.solver, kit.on_card(one),
+                  lambda: mpc.solver(*one), lambda s: s.contact_force, 1,
+                  [SQP_ITERS, 0, 0, 0, 0], lambda: k1(kit.qp1, kit.ipm),
+                  *seen(paths["centroidal_batch1"]), TOL_PRIMAL,
+                  cent_flops),
+        TimedPath(f"centroidal_fleet{FLEET}", kit.solver, kit.on_card(many),
+                  lambda: mpc.solver(*many), lambda s: s.contact_force,
+                  FLEET, [0, SQP_ITERS, 0, 0, 0],
+                  lambda: k2(kit.qpf, kit.ipm),
+                  *seen(paths[f"centroidal_fleet{FLEET}"]),
+                  TOL_PRIMAL, cent_flops),
+        TimedPath("legged_soft_batch1", kit.lsolver, kit.lone,
+                  lambda: glsolver(*lone_np.args), force, 1,
+                  [0, 0, 1, 0, 1],
+                  lambda: k3(kit.qpl, reg=kit.leg_reg),
+                  *seen(paths["legged_soft_batch1"]), TOL_LEG_PLAIN),
+        TimedPath("legged_pyramid_batch1", kit.lsolver_pyr, kit.lone,
+                  lambda: glsolver_pyr(*lone_np.args), force, 1,
+                  [1, 0, 0, 0, 1], lambda: k1(kit.qpp, kit.ipm_pyr),
+                  *seen(paths["legged_pyramid_batch1"]),
+                  TOL_LEG_PLAIN),
+        TimedPath(f"legged_fleet{LEGGED_FLEET}", kit.lsolver, kit.lmany,
+                  lambda: glsolver(*lmany_np.args), force, LEGGED_FLEET,
+                  [0, 0, 0, 1, 1], lambda: k4(kit.qplf, reg=kit.leg_reg),
+                  *seen(paths[f"legged_fleet{LEGGED_FLEET}"]),
+                  TOL_LEG_PLAIN),
+        TimedPath(f"legged_pyramid_fleet{LEGGED_FLEET_SMALL}",
+                  kit.lsolver_pyr, kit.lsmall,
+                  lambda: glsolver_pyr(*lsmall_np), force,
+                  LEGGED_FLEET_SMALL, [0, 1, 0, 0, 1],
+                  lambda: k2(qp_pyr_small, kit.ipm_pyr),
+                  *seen(pyramid[f"batch{LEGGED_FLEET_SMALL}"]),
+                  TOL_LEG_PLAIN),
+        TimedPath("convex_trot_batch1", cvx_eager, kit.on_card(cvx1),
+                  lambda: convex_solve(*cvx1), lambda s: s[0], 1,
+                  [1, 0, 0, 0, 0],
+                  lambda: k1(qp_cvx1, cvx_ipm),
+                  *seen(convex["trot_batch1"]), TOL_PRIMAL),
+        TimedPath(f"convex_trot_fleet{CONVEX_FLEET}", cvx_eager,
+                  kit.on_card(cvxf), lambda: convex_solve(*cvxf),
+                  lambda s: s[0], CONVEX_FLEET, [0, 1, 0, 0, 0],
+                  lambda: k2(qp_cvxf, cvx_ipm),
+                  *seen(convex[f"trot_batch{CONVEX_FLEET}"]),
+                  TOL_PRIMAL)]
+
+
+def phase_device_timing(kit, paths) -> dict:
+    """Device ms per solve of each path (``timed_paths``) by the slope over
+    chained CUDA-graph replays (``utils.device_timing.time_chain``), beside
+    its graphed host p50 and its profiled replay's device ms from this run.
+    Gated: the slope is positive and finite; the host issued every timed
+    chain call in less time than the device ran it (so the device did not
+    wait for the launch, ``time_chain``); the slope is at most
+    ``SLOPE_OVER_P50`` times the host p50 and at least
+    ``SLOPE_UNDER_KERNELS`` times the device time of the path's kernel
+    launches per solve by CUDA events (``events_ms``); each chain ran the
+    path's kernels once per solve in its warm-up calls and capture; the
+    k_big chain's last solve equals one graphed solve on the same inputs
+    within the kernel's tolerance against its plain version (the nudge
+    changes nothing a solve can see)."""
     from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS
+    dev = kit.dev
     t_start = time.perf_counter()
-    report = {"phase": "device_timing", "card": card,
+    report = {"phase": "device_timing", "card": kit.card,
               "chain_solves": {"batch1": CHAIN_BATCH1, "fleet": CHAIN_FLEET}}
     for p in paths:
         k_small, k_big = CHAIN_BATCH1 if p.batch == 1 else CHAIN_FLEET
@@ -1300,51 +1333,7 @@ def phase_device_timing(dev, card, kit, paths) -> dict:
     return report
 
 
-def phase_bench(card, graph_report) -> dict:
-    """``python3 -m cheeta_mpc_tpu_torch.bench`` in a child process, one
-    that never started a profiler: gated on its exit code, its last line's
-    keys (``bench.RESULT_KEYS``) and every number in it finite (the child
-    gates its own oracles and launch counts). Its batch-1 host p50s stand
-    beside this process's graphed p50s of the same paths, read after a
-    profiler session."""
-    from cheeta_mpc_tpu_torch.bench import RESULT_KEYS
-    t_start = time.perf_counter()
-    rc, out, err = run_child(
-        [sys.executable, "-m", "cheeta_mpc_tpu_torch.bench"],
-        dict(os.environ), pathlib.Path(__file__).resolve().parent,
-        BENCH_TIMEOUT_S)
-    check(rc == 0, f"bench: exit code {rc}; stderr ends {err[-3000:]}")
-    result = json.loads(out.strip().splitlines()[-1])
-    missing = sorted(RESULT_KEYS - set(result))
-    check(not missing, f"bench: keys missing from its last line: {missing}")
-
-    def numbers(obj):
-        if isinstance(obj, dict):
-            for v in obj.values():
-                yield from numbers(v)
-        elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
-            yield obj
-
-    check(all(math.isfinite(v) for v in numbers(result)),
-          "bench: a number in its last line is not finite")
-
-    def beside(bench_key, path):
-        return {"bench": result[bench_key],
-                "chip_smoke_graphed": graph_report[path]["graphed_ms"]["p50"]}
-
-    return {"phase": "bench", "card": card,
-            "seconds": time.perf_counter() - t_start,
-            "host_p50_ms": {
-                "centroidal_batch1": beside("batch1_cold_p50_ms",
-                                            "centroidal_batch1"),
-                "legged_soft_batch1": beside("legged_p50_ms",
-                                             "legged_soft_batch1")},
-            "progress": [ln for ln in out.splitlines() if ln.startswith("#")],
-            "result": result}
-
-
-def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
-                              many):
+def phase_projected_condensed(kit) -> dict:
     """The second equality mode and the condensed backend: the
     circular-kinematics OCP in both ``eq_mode``s (K3, on the reduced
     problem with one all-masked row in the projected mode), and the
@@ -1356,7 +1345,8 @@ def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
     from cheeta_mpc_tpu_torch.solvers.scp import (ScpSettings,
                                                   solve_nonlinear_ocp)
     from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
-    report = {"phase": "projected_condensed", "card": card}
+    dev, util, mpc = kit.dev, load_util(), kit.mpc
+    report = {"phase": "projected_condensed", "card": kit.card}
     sols = {}
     for dtype, where in ((torch.float32, dev), (torch.float64, "cpu")):
         for mode in ("riccati", "projected"):
@@ -1399,8 +1389,8 @@ def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
     # products and a batched Cholesky, as the JAX package computes it),
     # one CUDA graph per signature, against the kernel backend's graph.
     cond = graphed(build_centroidal_solver(
-        cfg, scp._replace(qp_backend="condensed"), device=dev), dev)
-    for name, args in (("batch1", one), (f"fleet{FLEET}", many)):
+        kit.cfg, kit.scp._replace(qp_backend="condensed"), device=dev), dev)
+    for name, args in (("batch1", kit.one), (f"fleet{FLEET}", kit.many)):
         tr, sol_c = kit.graphed_run(f"condensed {name}", lambda: cond(*args),
                                     [0, 0, 0, 0, 0])
         sol_k = mpc.solver(*args)
@@ -1420,7 +1410,7 @@ def phase_projected_condensed(dev, card, kit, util, cfg, scp, mpc, one,
     return report
 
 
-def phase_mesh(dev, card, kit, convex, solf):
+def phase_mesh(kit, convex, solf) -> dict:
     """``parallel.mesh`` on the card: the convex trot fleet of 4096
     scenarios, every input with its batch dimension, sharded over
     ``make_mesh`` (this run's one card) against the unsharded eager solve,
@@ -1434,6 +1424,7 @@ def phase_mesh(dev, card, kit, convex, solf):
     from cheeta_mpc_tpu_torch.solvers.scp import (CONV_METRICS, CONV_PRIMAL,
                                                   CONV_STEPSIZE)
     cfg, ipm = convex
+    dev = kit.dev
     x0, ref, feet, enable = convex_scenarios(CONVEX_FLEET, "trot")
     args = (x0, ref, np.tile(feet, (CONVEX_FLEET, 1, 1)),
             np.tile(enable, (CONVEX_FLEET, 1, 1)))
@@ -1475,7 +1466,7 @@ def phase_mesh(dev, card, kit, convex, solf):
     check(all(abs(got[k] - want[k]) <= 1e-9 * max(1.0, abs(want[k]))
               for k in want) and torch.equal(gathered, f),
           f"fleet health over nccl {got} != local reduction {want}")
-    return {"phase": "mesh", "card": card, "devices": len(mesh.devices),
+    return {"phase": "mesh", "card": kit.card, "devices": len(mesh.devices),
             "batch": int(f.shape[0]), "replay": tr,
             "sharded_vs_unsharded_max_abs": diff,
             "fleet_health": got,
@@ -1721,174 +1712,227 @@ def phase_legged_linearize(dev, card) -> dict:
     return report
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False); this script runs on a GPU only", file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
+def shape_of(qp):
+    return (qp.dyn.horizon, qp.dyn.nx, qp.dyn.nu)
 
-    # Phase 1: the card.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-    # Start the profiler's device tracing once before any graph is captured,
-    # so that later traces see the kernels of every graph's replays.
-    trace_counts(lambda: torch.ones(1, device=dev).sum())
 
-    from cheeta_mpc_tpu_torch.core.types import tree_map
-    from cheeta_mpc_tpu_torch.examples import (LEGGED_TEST_WEIGHTS,
-                                               TEST_WEIGHTS,
-                                               make_example_inputs,
-                                               make_legged_example_inputs)
-    from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import (
-        CentroidalMPC, build_centroidal_solver)
-    from cheeta_mpc_tpu_torch.mpc.legged_mpc import (LeggedMpcConfig,
-                                                     build_legged_solver)
-    from cheeta_mpc_tpu_torch.native import build
-    from cheeta_mpc_tpu_torch.ops import cuda_eq_batch as eq_fleet_mod
-    from cheeta_mpc_tpu_torch.ops import cuda_eq_riccati as eq_single_mod
-    from cheeta_mpc_tpu_torch.ops import cuda_ipm_batch as fleet_mod
-    from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as single_mod
-    from cheeta_mpc_tpu_torch.ops import cuda_legged_linearize as l1_mod
-    from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
-    from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
-    from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS, graphed
+class Kit:
+    """What the phases share: the card, the kernel wrappers K1..K4 and L1
+    with their launch counters, the centroidal and legged main paths'
+    solvers and inputs, and the first QP of each main path."""
 
-    k1, k1_plain = single_mod.solve_ocp_qp_kernel, single_mod.solve_ocp_qp_plain
-    k2 = fleet_mod.solve_ocp_qp_fleet
-    k2_plain = fleet_mod.solve_ocp_qp_fleet_plain
-    k3, k3_plain = (eq_single_mod.solve_eq_lqr_kernel,
-                    eq_single_mod.solve_eq_lqr_plain)
-    k4, k4_plain = (eq_fleet_mod.solve_eq_lqr_fleet,
-                    eq_fleet_mod.solve_eq_lqr_fleet_plain)
-    l1 = l1_mod.legged_linearize
-    kernels = (k1, k2, k3, k4, l1)
-    idle = [0] * len(kernels)
+    def __init__(self, dev, card):
+        from cheeta_mpc_tpu_torch.examples import (LEGGED_TEST_WEIGHTS,
+                                                   TEST_WEIGHTS,
+                                                   make_example_inputs,
+                                                   make_legged_example_inputs)
+        from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import (
+            CentroidalMPC, build_centroidal_solver)
+        from cheeta_mpc_tpu_torch.mpc.legged_mpc import (LeggedMpcConfig,
+                                                         build_legged_solver)
+        from cheeta_mpc_tpu_torch.ops import cuda_eq_batch as eq_fleet_mod
+        from cheeta_mpc_tpu_torch.ops import cuda_eq_riccati as eq_single_mod
+        from cheeta_mpc_tpu_torch.ops import cuda_ipm_batch as fleet_mod
+        from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as single_mod
+        from cheeta_mpc_tpu_torch.ops import cuda_legged_linearize as l1_mod
+        from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+        from cheeta_mpc_tpu_torch.solvers.scp import ScpSettings
+        from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
+        self.dev, self.card = dev, card
+        self.single_mod, self.eq_single_mod = single_mod, eq_single_mod
+        self.k1 = single_mod.solve_ocp_qp_kernel
+        self.k1_plain = single_mod.solve_ocp_qp_plain
+        self.k2 = fleet_mod.solve_ocp_qp_fleet
+        self.k2_plain = fleet_mod.solve_ocp_qp_fleet_plain
+        self.k3 = eq_single_mod.solve_eq_lqr_kernel
+        self.k3_plain = eq_single_mod.solve_eq_lqr_plain
+        self.k4 = eq_fleet_mod.solve_eq_lqr_fleet
+        self.k4_plain = eq_fleet_mod.solve_eq_lqr_fleet_plain
+        self.l1 = l1_mod.legged_linearize
+        self.kernels = (self.k1, self.k2, self.k3, self.k4, self.l1)
 
-    def reset_counts():
-        for k in kernels:
+        # The centroidal MPC on its default backend, the kernels; scp64
+        # is the plain executor.
+        self.ipm = IpmSettings(iters=IPM_ITERS)
+        self.scp = ScpSettings(iterations=SQP_ITERS, ipm=self.ipm)
+        self.scp64 = self.scp._replace(qp_backend="riccati")
+        self.mpc = CentroidalMPC(MASS, 4, HORIZON, DT, TEST_WEIGHTS,
+                                 [0.8] * 4, scp=self.scp).setup_mpc()
+        self.cfg = self.mpc.config
+        self.solver = build_centroidal_solver(self.cfg, self.scp, device=dev)
+        self.one = make_example_inputs(self.cfg)
+        self.many = make_example_inputs(self.cfg, batch=FLEET)
+
+        # The legged task: the reference's configuration (horizon 67, dt
+        # 0.015, RK2, friction 0.5, barrier mu 0.1 / delta 5.0,
+        # position-error gain 20) with the stand-in Q/R of examples.py, on
+        # the trot scenario; one SQP iteration on the kernels. The graphed
+        # solvers are the ones the legged planning node builds.
+        self.lcfg = LeggedMpcConfig(horizon=LEGGED_HORIZON, cone_mode='soft',
+                                    **LEGGED_TEST_WEIGHTS)
+        self.lcfg_pyr = self.lcfg._replace(cone_mode='pyramid')
+        self.lscp = ScpSettings(iterations=1)
+        self.ipm_pyr = IpmSettings(iters=PYRAMID_IPM_ITERS)
+        self.lscp_pyr = ScpSettings(iterations=1, ipm=self.ipm_pyr)
+        self.leg_reg = self.lscp.ipm.reg
+        self.lsolver = build_legged_solver(self.lcfg, self.lscp, device=dev)
+        self.lsolver_pyr = build_legged_solver(self.lcfg_pyr, self.lscp_pyr,
+                                               device=dev)
+        self.glsolver = graphed(self.lsolver, dev)
+        self.glsolver_pyr = graphed(self.lsolver_pyr, dev)
+        self.lone_np = make_legged_example_inputs(self.lcfg)
+        self.lmany_np = make_legged_example_inputs(self.lcfg,
+                                                   batch=LEGGED_FLEET)
+        self.lone = self.on_card(self.lone_np.args)
+        self.lmany = self.on_card(self.lmany_np.args)
+        self.lsmall = tuple(a[:LEGGED_FLEET_SMALL] for a in self.lmany)
+
+        # Each main path's first QP: centroidal batch 1 and fleet, legged
+        # batch 1, fleet and small fleet, legged pyramid batch 1.
+        self.qp1 = contig(self.solver.initial_qp(*self.one))
+        self.qpf = contig(self.solver.initial_qp(*self.many))
+        self.qpl = contig(self.lsolver.initial_qp(*self.lone))
+        self.qplf = contig(self.lsolver.initial_qp(*self.lmany))
+        self.qpls = contig(self.lsolver.initial_qp(*self.lsmall))
+        self.qpp = contig(self.lsolver_pyr.initial_qp(*self.lone))
+
+    def on_card(self, arrays):
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=self.dev)
+                     for a in arrays)
+
+    def reset_counts(self):
+        for k in self.kernels:
             k.launches = 0
 
-    def counts():
-        return [k.launches for k in kernels]
+    def counts(self):
+        return [k.launches for k in self.kernels]
 
-    def graphed_run(what, call, want):
+    def graphed_run(self, what, call, want):
         """A graphed path's main-path run: its first call (the warm-up
         calls and the capture, each through the kernel wrappers, whose
         counters count them) and then one replay under the profiler. A
         replay calls no wrapper, so its kernels are counted by name in the
         trace. Returns the trace and the replay's result."""
-        reset_counts()
+        from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS
+        self.reset_counts()
         call()
         torch.cuda.synchronize()
         want_capture = [(WARMUP_CALLS + 1) * w for w in want]
-        check(counts() == want_capture,
+        check(self.counts() == want_capture,
               f"{what}: the first call (warm-up calls and capture) launched "
-              f"K1..K4, L1 {counts()}x; expected {want_capture}")
-        reset_counts()
+              f"K1..K4, L1 {self.counts()}x; expected {want_capture}")
+        self.reset_counts()
         tr, value = trace_counts(call)
         check(tr["kernels"] == want,
               f"{what}: a profiled replay ran K1..K4, L1 {tr['kernels']}x; "
               f"expected {want}")
-        check(tr["graph_launches"] == 1 and counts() == idle,
+        check(tr["graph_launches"] == 1 and self.counts() == IDLE,
               f"{what}: the second call made {tr['graph_launches']} graph "
-              f"launches and called the kernel wrappers {counts()}x; "
+              f"launches and called the kernel wrappers {self.counts()}x; "
               "expected one replay")
         return tr, value
 
-    # Phase 2: build.
+    def placement_of(self, qp, settings):
+        """Where K1 keeps ``qp``'s Riccati factors, and its shared bytes."""
+        from cheeta_mpc_tpu_torch.native.build import load_library
+        eq = qp.eq
+        shape = (qp.dyn.horizon, qp.dyn.nx, qp.dyn.nu, qp.con.ng,
+                 0 if eq is None else eq.nc)
+        name, _, nbytes = self.single_mod.shared_memory_plan(
+            load_library(), "cheeta_ipm_riccati_single", shape,
+            settings.iters, self.dev)
+        return name, nbytes
+
+
+def check_centroidal_swing(grf, des_inputs, what: str) -> None:
+    """Exact zeros on the legs that the contact table packed in
+    ``des_inputs`` (leg i's flags at ``[i (4N + 3), i (4N + 3) + N)``)
+    puts in swing; ``grf`` is ``(..., legs, 3, N)``."""
+    des = np.asarray(des_inputs)
+    enable = torch.as_tensor(np.stack(
+        [des[..., i * (4 * HORIZON + 3):][..., :HORIZON] for i in range(4)],
+        axis=-2), device=grf.device)  # (..., legs, N)
+    swing = grf[(enable[..., :, None, :] == 0).expand_as(grf)]
+    check(bool((swing == 0).all()), f"{what}: swing-leg forces are not "
+          "exactly 0")
+
+
+def phase_device(dev):
+    """The card's name and power limit and the versions; returns the
+    report and the card. Starts the profiler's device tracing once before
+    any graph is captured, so that later traces see the kernels of every
+    graph's replays."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    trace_counts(lambda: torch.ones(1, device=dev).sum())
+    return {"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
+            "cuda": torch.version.cuda}, card
+
+
+def phase_build() -> dict:
+    """The kernels, built from their sources in this run, with ptxas's
+    registers and spills of every instantiation, by source."""
+    from cheeta_mpc_tpu_torch.native import build
     build.load_library()
-    # ptxas's registers and spills of every instantiation, by source.
     ptxas, source = {}, None
     for ln in build.build_log.splitlines():
         if ln.startswith("$ ") and " -c " in ln:
             source = pathlib.Path(ln.split(" -c ")[1].split()[0]).name
         elif source and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(source, []).append(ln.split(": ")[-1].strip())
-    emit({"phase": "build", "seconds": build.build_seconds,
-          "sources": sorted(p.name for p in build.CSRC_DIR.glob("*.cu*")),
-          "ptxas": ptxas})
     check(build.build_seconds is not None,
           "the kernels were not built from the sources in this run")
-    emit(phase_spd_inverse(dev, card))
+    return {"phase": "build", "seconds": build.build_seconds,
+            "sources": sorted(p.name for p in build.CSRC_DIR.glob("*.cu*")),
+            "ptxas": ptxas}
 
-    ipm = IpmSettings(iters=IPM_ITERS)
-    scp = ScpSettings(iterations=SQP_ITERS, ipm=ipm)  # default: the kernels
-    mpc = CentroidalMPC(MASS, 4, HORIZON, DT, TEST_WEIGHTS, [0.8] * 4,
-                        scp=scp).setup_mpc()
-    cfg = mpc.config
-    solver = build_centroidal_solver(cfg, scp, device=dev)
-    one = make_example_inputs(cfg)
-    many = make_example_inputs(cfg, batch=FLEET)
 
-    # The legged task: the reference's configuration (horizon 67, dt 0.015,
-    # RK2, friction 0.5, barrier mu 0.1 / delta 5.0, position-error gain 20)
-    # with the stand-in Q/R of examples.py, on the trot scenario.
-    lcfg = LeggedMpcConfig(horizon=LEGGED_HORIZON, cone_mode='soft',
-                           **LEGGED_TEST_WEIGHTS)
-    lcfg_pyr = lcfg._replace(cone_mode='pyramid')
-    lscp = ScpSettings(iterations=1)  # default backend: the kernels
-    ipm_pyr = IpmSettings(iters=PYRAMID_IPM_ITERS)
-    lscp_pyr = ScpSettings(iterations=1, ipm=ipm_pyr)
-    leg_reg = lscp.ipm.reg
-    lsolver = build_legged_solver(lcfg, lscp, device=dev)
-    lsolver_pyr = build_legged_solver(lcfg_pyr, lscp_pyr, device=dev)
-    lone_np = make_legged_example_inputs(lcfg)
-    lmany_np = make_legged_example_inputs(lcfg, batch=LEGGED_FLEET)
-
-    def on_card(arrays):
-        return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
-                     for a in arrays)
-
-    lone, lmany = on_card(lone_np.args), on_card(lmany_np.args)
-    lsmall = tuple(a[:LEGGED_FLEET_SMALL] for a in lmany)
-
-    def placement_of(qp, settings):
-        eq = qp.eq
-        shape = (qp.dyn.horizon, qp.dyn.nx, qp.dyn.nu, qp.con.ng,
-                 0 if eq is None else eq.nc)
-        name, _, nbytes = single_mod.shared_memory_plan(
-            build.load_library(), "cheeta_ipm_riccati_single", shape,
-            settings.iters, dev)
-        return name, nbytes
-
-    # Phase 3: each kernel against its plain version on the card.
-    qp1 = contig(solver.initial_qp(*one))
-    s1, p1 = k1(qp1, ipm), k1_plain(qp1, ipm)
+def phase_kernel_vs_plain(kit) -> dict:
+    """Each kernel against its plain version on the same CUDA tensors: K1
+    on the centroidal QP and on seeded instances that reach its other code
+    paths, K2 on the fleet's QP and at batch 1 against K1, K3 on the legged
+    QP and on seeded instances, K4 on the legged fleet's QP and at batch 1
+    against K3."""
+    from cheeta_mpc_tpu_torch.native.build import load_library
+    from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+    dev, leg_reg, ipm = kit.dev, kit.leg_reg, kit.ipm
+    k1, k1_plain, k2, k2_plain = kit.k1, kit.k1_plain, kit.k2, kit.k2_plain
+    k3, k3_plain, k4, k4_plain = kit.k3, kit.k3_plain, kit.k4, kit.k4_plain
+    s1, p1 = k1(kit.qp1, ipm), k1_plain(kit.qp1, ipm)
     torch.cuda.synchronize()
     err_k1 = compare_solutions(s1, p1, True, "K1, centroidal QP")
 
     # Seeded instances that reach the other code paths: stage equalities at
     # a small shape (factors in shared memory); the centroidal widths at
     # horizon 18; the legged shape, whose factors go to the global scratch
-    # buffer. Six iterations bring mu to about 5e-4.
+    # buffer; an input wider than one warp's tableau (nu = 36), whose SPD
+    # inverse takes the block form. Six iterations bring mu to about 5e-4.
     # Further on, the barrier Hessian of this random family is numerically
     # singular in f32 at the wide shapes: the last factorization, whose step
-    # the guard rejects, leaves non-finite gains in either executor.
+    # the guard rejects, leaves non-finite gains in either executor. At
+    # nu = 36 that happens at the sixth, so there the iterate alone is
+    # compared.
     ipm_e = IpmSettings(iters=6)
-    others, placements = {}, {"k1_centroidal": placement_of(qp1, ipm)}
-    for name, qp in (
-            ("k1_equalities", random_qp(7, dev)),
+    others = {}
+    placements = {"k1_centroidal": kit.placement_of(kit.qp1, ipm)}
+    for name, qp, gains in (
+            ("k1_equalities", random_qp(7, dev), True),
             ("k1_horizon18", random_qp(8, dev, N=18, nx=33, nu=24, ng=32,
-                                       nc=0)),
-            ("k1_legged_shape", random_qp(7, dev, **LEGGED_SHAPE))):
+                                       nc=0), True),
+            ("k1_legged_shape", random_qp(7, dev, **LEGGED_SHAPE), True),
+            ("k1_past_the_warp", random_qp(7, dev, N=6, nu=36), False)):
         sk, pk = k1(qp, ipm_e), k1_plain(qp, ipm_e)
         torch.cuda.synchronize()
-        others[name] = compare_solutions(sk, pk, True, name)
-        placements[name] = placement_of(qp, ipm_e)
+        others[name] = compare_solutions(sk, pk, gains, name)
+        placements[name] = kit.placement_of(qp, ipm_e)
     check(sorted({name for name, _ in placements.values()})
-          == sorted(n for n, _ in single_mod.PLACEMENTS),
+          == sorted(n for n, _ in kit.single_mod.PLACEMENTS),
           f"the instances do not reach every placement: {placements}")
 
-    qpf = contig(solver.initial_qp(*many))
-    sf, pf = k2(qpf, ipm), k2_plain(qpf, ipm)
+    sf, pf = k2(kit.qpf, ipm), k2_plain(kit.qpf, ipm)
     torch.cuda.synchronize()
     err_k2 = compare_solutions(sf, pf, False, f"K2, batch {FLEET}")
     check(bool(torch.isnan(sf.gains.K).all()),
@@ -1896,7 +1940,7 @@ def main() -> int:
     # The two kernels share their device code: problem 0 of the fleet is
     # the batch-1 problem only up to the scenario, so compare K2 on a fleet
     # of one against K1.
-    qp11 = contig(solver.initial_qp(*(a[None] for a in one)))
+    qp11 = contig(kit.solver.initial_qp(*(a[None] for a in kit.one)))
     s11 = k2(qp11, ipm)
     torch.cuda.synchronize()
     k2_vs_k1 = max(max_abs(s11.du[0], s1.du), max_abs(s11.dx[0], s1.dx))
@@ -1905,8 +1949,7 @@ def main() -> int:
     # K3 on the legged task's own first QP and on the seeded instance at the
     # legged shape with its inequality rows dropped; K4 at batch 512 on the
     # fleet's first QP, and at batch 1 against K3 (same device code).
-    qpl = contig(lsolver.initial_qp(*lone))
-    s3, p3 = k3(qpl, reg=leg_reg), k3_plain(qpl, reg=leg_reg)
+    s3, p3 = k3(kit.qpl, reg=leg_reg), k3_plain(kit.qpl, reg=leg_reg)
     torch.cuda.synchronize()
     err_k3 = compare_eq_solutions(s3, p3, TOL_EQ_TASK, True,
                                   "K3, legged QP")
@@ -1924,160 +1967,180 @@ def main() -> int:
                         ("k3_one_stage_slot", dict(N=3, nx=110, nu=8,
                                                    nc=4))):
         qpo = random_qp(11, dev, ng=1, **shape).replace(con=None)
-        dims, nbytes = eq_single_mod.shared_memory_plan(build.load_library(),
-                                                        qpo)
+        dims, nbytes = kit.eq_single_mod.shared_memory_plan(
+            load_library(), qpo)
         so, po = k3(qpo, reg=leg_reg), k3_plain(qpo, reg=leg_reg)
         torch.cuda.synchronize()
         err_k3_off[name] = compare_eq_solutions(so, po, TOL_EQ_RANDOM, True,
                                                 f"K3, {name}")
         err_k3_off[name]["stage_slots_and_bytes"] = [dims[4], nbytes]
-    qplf = contig(lsolver.initial_qp(*lmany))
-    s4, p4 = k4(qplf, reg=leg_reg), k4_plain(qplf, reg=leg_reg)
+    s4, p4 = k4(kit.qplf, reg=leg_reg), k4_plain(kit.qplf, reg=leg_reg)
     torch.cuda.synchronize()
     err_k4 = compare_eq_solutions(s4, p4, TOL_EQ_TASK, False,
                                   f"K4, batch {LEGGED_FLEET}")
     check(bool(torch.isnan(s4.gains.P).all())
           and bool(torch.isnan(s4.gains.p).all()),
           "K4 must return a NaN value function (P, p)")
-    qpl1 = contig(lsolver.initial_qp(*(a[None] for a in lone)))
+    qpl1 = contig(kit.lsolver.initial_qp(*(a[None] for a in kit.lone)))
     s41 = k4(qpl1, reg=leg_reg)
     torch.cuda.synchronize()
     k4_vs_k3 = max(max_abs(s41.du[0], s3.du), max_abs(s41.dx[0], s3.dx),
                    max_abs(s41.gains.K[0], s3.gains.K))
     check(k4_vs_k3 <= 1e-6 * max(1.0, float(s3.gains.K.abs().max())),
           f"K4 at batch 1 differs from K3 by {k4_vs_k3}")
-    emit({"phase": "kernel_vs_plain", "tolerance": {
+    return {"phase": "kernel_vs_plain", "tolerance": {
         "dx_du": TOL_PRIMAL, "duals_slacks_rel": TOL_DUAL,
         "eq_task_rel": TOL_EQ_TASK, "eq_random_rel": TOL_EQ_RANDOM},
         "k1_centroidal": err_k1, **others, "k2_fleet": err_k2,
         "k2_batch1_vs_k1": k2_vs_k1, "k3_legged": err_k3,
         "k3_random_legged_shape": err_k3r, **err_k3_off, "k4_fleet": err_k4,
         "k4_batch1_vs_k3": k4_vs_k3,
-        "kept_in_shared_memory_and_bytes": placements})
+        "kept_in_shared_memory_and_bytes": placements}
 
-    # Phase 4: centroidal main path, batch 1. ``update_mpc`` runs one CUDA
-    # graph per input signature: the first call captures it, every later
-    # call replays it (``graphed_run``).
-    tr1, sol1 = graphed_run("centroidal batch-1 main path",
-                            lambda: mpc.update_mpc(*one),
-                            [SQP_ITERS, 0, 0, 0, 0])
-    launches_k1 = tr1["kernels"][0]
+
+def phase_main_path_batch1(kit) -> dict:
+    """The centroidal main path at batch 1: ``update_mpc`` runs one CUDA
+    graph per input signature (the first call captures it, every later
+    call replays it, ``graphed_run``). Forces against the f64 CPU solve and
+    against the same solve through the plain executor on the card."""
+    from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import \
+        build_centroidal_solver
+    tr1, sol1 = kit.graphed_run("centroidal batch-1 main path",
+                                lambda: kit.mpc.update_mpc(*kit.one),
+                                [SQP_ITERS, 0, 0, 0, 0])
     grf = sol1.contact_force  # (legs, 3, N)
     for name in ("contact_force", "foot_pos", "x_traj", "u_traj", "merit"):
         check(bool(torch.isfinite(getattr(sol1, name)).all()),
               f"batch 1: {name} is not finite")
     check(tuple(grf.shape) == (4, 3, HORIZON), f"GRF shape {grf.shape}")
-    enable = torch.as_tensor(
-        np.stack([one[2][i * (4 * HORIZON + 3):][:HORIZON]
-                  for i in range(4)]), device=dev)  # (legs, N)
-    swing = grf[enable[:, None, :].expand_as(grf) == 0]
-    check(bool((swing == 0).all()), "swing-leg forces are not exactly 0")
+    check_centroidal_swing(grf, kit.one[2], "batch 1")
     fz = grf[:, 2, :].sum(dim=0)
     fz_resid = check_vertical_force(sol1, "batch 1")
-    scp64 = scp._replace(qp_backend="riccati")
     ref64 = build_centroidal_solver(
-        cfg._replace(dtype=torch.float64), scp64, device="cpu")(*one)
+        kit.cfg._replace(dtype=torch.float64), kit.scp64,
+        device="cpu")(*kit.one)
     grf_err = max_abs(grf.cpu(), ref64.contact_force)
     check(grf_err <= TOL_GRF,
           f"batch-1 GRF differs from the f64 CPU solve by {grf_err} N")
-    emit({"phase": "main_path_batch1", "k1_launches": launches_k1,
-          "total_fz": [round(v, 3) for v in fz.tolist()],
-          "mg": MASS * GRAVITY, "fz_minus_m_g_plus_zdd": fz_resid,
-          "grf_err_vs_f64_cpu": grf_err, "tolerance": TOL_GRF,
-          "step_size": sol1.step_size.tolist(),
-          "convergence": int(sol1.convergence)})
+    plain = build_centroidal_solver(kit.cfg, kit.scp64,
+                                    device=kit.dev)(*kit.one)
+    torch.cuda.synchronize()
+    plain_err = max_abs(grf, plain.contact_force)
+    check(plain_err <= TOL_KERNEL_VS_PLAIN,
+          f"batch-1 GRF differs from the plain executor by {plain_err} N")
+    return {"phase": "main_path_batch1", "k1_launches": tr1["kernels"][0],
+            "total_fz": [round(v, 3) for v in fz.tolist()],
+            "mg": MASS * GRAVITY, "fz_minus_m_g_plus_zdd": fz_resid,
+            "grf_err_vs_f64_cpu": grf_err, "tolerance": TOL_GRF,
+            "grf_err_vs_plain_executor": plain_err,
+            "tolerance_plain": TOL_KERNEL_VS_PLAIN,
+            "step_size": sol1.step_size.tolist(),
+            "convergence": int(sol1.convergence)}
 
-    # Phase 5: centroidal main path, fleet (a graph of its own, as in
-    # phase 4).
-    trf, solf = graphed_run("centroidal fleet main path",
-                            lambda: mpc.update_mpc(*many),
-                            [0, SQP_ITERS, 0, 0, 0])
-    launches_k2 = trf["kernels"][1]
+
+def phase_main_path_fleet(kit):
+    """The centroidal main path on the fleet (a graph of its own), against
+    the plain executor and element 0 against its batch-1 solve; returns the
+    report and the solution."""
+    from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import \
+        build_centroidal_solver
+    trf, solf = kit.graphed_run("centroidal fleet main path",
+                                lambda: kit.mpc.update_mpc(*kit.many),
+                                [0, SQP_ITERS, 0, 0, 0])
     check(tuple(solf.contact_force.shape) == (FLEET, 4, 3, HORIZON),
           f"fleet GRF shape {solf.contact_force.shape}")
     for name in ("contact_force", "foot_pos", "x_traj", "u_traj", "merit"):
         check(bool(torch.isfinite(getattr(solf, name)).all()),
               f"fleet: {name} is not finite")
-    plain_solver = build_centroidal_solver(cfg, scp64, device=dev)
-    solp = plain_solver(*many)
+    check_centroidal_swing(solf.contact_force, kit.many[2], "fleet")
+    solp = build_centroidal_solver(kit.cfg, kit.scp64,
+                                   device=kit.dev)(*kit.many)
     torch.cuda.synchronize()
     fleet_err = max_abs(solf.contact_force, solp.contact_force)
     check(fleet_err <= TOL_GRF,
           f"fleet GRF differs from the plain executor by {fleet_err} N")
     check(bool((solf.step_size == solp.step_size).all()),
           "fleet line-search steps differ from the plain executor's")
-    sol0 = mpc.update_mpc(*(a[0] for a in many))
+    sol0 = kit.mpc.update_mpc(*(a[0] for a in kit.many))
     torch.cuda.synchronize()
     el0_err = max_abs(solf.contact_force[0], sol0.contact_force)
     check(el0_err <= TOL_GRF,
           f"fleet element 0 differs from its batch-1 solve by {el0_err} N")
     fzf_resid = check_vertical_force(solf, "fleet")
-    emit({"phase": "main_path_fleet", "batch": FLEET,
-          "k2_launches": launches_k2, "grf_err_vs_plain_executor": fleet_err,
-          "element0_vs_batch1": el0_err, "tolerance": TOL_GRF,
-          "fz_minus_m_g_plus_zdd": fzf_resid})
+    return {"phase": "main_path_fleet", "batch": FLEET,
+            "k2_launches": trf["kernels"][1],
+            "grf_err_vs_plain_executor": fleet_err,
+            "element0_vs_batch1": el0_err, "tolerance": TOL_GRF,
+            "fz_minus_m_g_plus_zdd": fzf_resid}, solf
 
 
-    # Phase 6: legged main path, batch 1, soft cone: one K3 launch and one
-    # L1 launch (one SQP iteration). Phases 6-8 hold the forces against an
-    # independent path only here: the f64 CPU solve linearizes by the plain
-    # version (jacfwd). The plain executor of phases 7 and 8 on the card
-    # runs L1 too, so there it checks the QP kernels alone; the fleet's
-    # element 0, the batch-1 scenario, is held to this solve.
-    enable1 = lone[2]
-    reset_counts()
-    lsol = lsolver(*lone)
+def phase_legged_batch1(kit):
+    """The legged main path at batch 1, soft cone: one K3 launch and one L1
+    launch (one SQP iteration). The legged main-path phases hold the forces
+    against an independent path only here: the f64 CPU solve linearizes by
+    the plain version (jacfwd). The plain executor of the pyramid and fleet
+    phases on the card runs L1 too, so there it checks the QP kernels
+    alone; the fleet's element 0, the batch-1 scenario, is held to this
+    solve, which is returned with the report."""
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import build_legged_solver
+    kit.reset_counts()
+    lsol = kit.lsolver(*kit.lone)
     torch.cuda.synchronize()
-    launches_k3, launches_l1 = k3.launches, l1.launches
-    check(counts() == [0, 0, 1, 0, 1],
-          f"legged batch-1 main path launched K1..K4, L1 {counts()}x; "
+    launches = kit.counts()
+    check(launches == [0, 0, 1, 0, 1],
+          f"legged batch-1 main path launched K1..K4, L1 {launches}x; "
           "expected [0, 0, 1, 0, 1]")
-    fz_lo, fz_hi = check_legged_forces(lsol, enable1, "legged batch 1")
+    fz_lo, fz_hi = check_legged_forces(lsol, kit.lone[2], "legged batch 1")
     check(bool(torch.isfinite(lsol.gains_P).all()),
           "legged batch 1: K3 must return a finite value function")
     lref64 = build_legged_solver(
-        lcfg._replace(dtype=torch.float64),
-        lscp._replace(qp_backend="riccati"), device="cpu")(*lone_np.args)
+        kit.lcfg._replace(dtype=torch.float64),
+        kit.lscp._replace(qp_backend="riccati"),
+        device="cpu")(*kit.lone_np.args)
     leg_err = max_abs(lsol.forces.cpu(), lref64.forces)
     check(leg_err <= TOL_LEG_F64,
           f"legged batch-1 forces differ from the f64 CPU solve by "
           f"{leg_err} N")
     check(lsol.step_size.tolist() == lref64.step_size.tolist(),
           "legged batch 1: line-search steps differ from the f64 solve's")
-    emit({"phase": "legged_batch1", "horizon": LEGGED_HORIZON,
-          "k3_launches": launches_k3, "l1_launches": launches_l1,
-          "total_fz_min_max": [fz_lo, fz_hi],
-          "mg": LEGGED_MG, "force_err_vs_f64_cpu": leg_err,
-          "tolerance": TOL_LEG_F64, "step_size": lsol.step_size.tolist(),
-          "convergence": int(lsol.convergence)})
+    return {"phase": "legged_batch1", "horizon": LEGGED_HORIZON,
+            "k3_launches": launches[2], "l1_launches": launches[4],
+            "total_fz_min_max": [fz_lo, fz_hi],
+            "mg": LEGGED_MG, "force_err_vs_f64_cpu": leg_err,
+            "tolerance": TOL_LEG_F64, "step_size": lsol.step_size.tolist(),
+            "convergence": int(lsol.convergence)}, lsol
 
-    # Phase 7: legged main path, batch 1, pyramid cone: one K1 launch with
-    # 20 pyramid rows and 16 masked stage equalities, factors in the global
-    # scratch buffer.
-    qpp = contig(lsolver_pyr.initial_qp(*lone))
-    pyr_placement = placement_of(qpp, ipm_pyr)
+
+def phase_legged_pyramid_batch1(kit) -> dict:
+    """The legged main path at batch 1, pyramid cone: one K1 launch with 20
+    pyramid rows and 16 masked stage equalities, factors in the global
+    scratch buffer."""
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import build_legged_solver
+    lcfg_pyr = kit.lcfg_pyr
+    pyr_placement = kit.placement_of(kit.qpp, kit.ipm_pyr)
     check(pyr_placement[0] == "none",
           f"the legged pyramid QP was expected to keep its factors in "
           f"global memory, got placement {pyr_placement}")
-    reset_counts()
-    psol = lsolver_pyr(*lone)
+    kit.reset_counts()
+    psol = kit.lsolver_pyr(*kit.lone)
     torch.cuda.synchronize()
-    launches_k1_pyr = k1.launches
-    check(counts() == [1, 0, 0, 0, 1],
-          f"legged pyramid main path launched K1..K4, L1 {counts()}x; "
+    launches_k1 = kit.k1.launches
+    check(kit.counts() == [1, 0, 0, 0, 1],
+          f"legged pyramid main path launched K1..K4, L1 {kit.counts()}x; "
           "expected [1, 0, 0, 0, 1]")
-    pfz_lo, pfz_hi = check_legged_forces(psol, enable1, "legged pyramid")
+    enable = kit.lone[2]
+    pfz_lo, pfz_hi = check_legged_forces(psol, enable, "legged pyramid")
     check(bool(torch.isfinite(psol.gains_K).all()),
           f"legged pyramid: non-finite gains after {PYRAMID_IPM_ITERS} IPM "
           "iterations")
-    pyr_viol = pyramid_violation(psol.forces, enable1, lcfg_pyr.friction_mu,
+    pyr_viol = pyramid_violation(psol.forces, enable, lcfg_pyr.friction_mu,
                                  lcfg_pyr.force_max)
     check(pyr_viol <= TOL_PYRAMID,
           f"legged pyramid: a stance force leaves the pyramid by "
           f"{pyr_viol} N")
     pplain = build_legged_solver(
-        lcfg_pyr, lscp_pyr._replace(qp_backend="riccati"),
-        device=dev)(*lone)
+        lcfg_pyr, kit.lscp_pyr._replace(qp_backend="riccati"),
+        device=kit.dev)(*kit.lone)
     torch.cuda.synchronize()
     pyr_err = max_abs(psol.forces, pplain.forces)
     check(pyr_err <= TOL_LEG_PLAIN,
@@ -2086,29 +2149,35 @@ def main() -> int:
     check(psol.step_size.tolist() == pplain.step_size.tolist(),
           "legged pyramid: line-search steps differ from the plain "
           "executor's")
-    emit({"phase": "legged_pyramid_batch1", "ipm_iters": PYRAMID_IPM_ITERS,
-          "k1_launches": launches_k1_pyr,
-          "kept_in_shared_memory_and_bytes": pyr_placement,
-          "total_fz_min_max": [pfz_lo, pfz_hi],
-          "outside_pyramid": pyr_viol, "tolerance_pyramid": TOL_PYRAMID,
-          "force_err_vs_plain_executor": pyr_err,
-          "tolerance": TOL_LEG_PLAIN, "qp_mu": float(psol.qp_mu),
-          "step_size": psol.step_size.tolist()})
+    return {"phase": "legged_pyramid_batch1", "ipm_iters": PYRAMID_IPM_ITERS,
+            "k1_launches": launches_k1,
+            "kept_in_shared_memory_and_bytes": pyr_placement,
+            "total_fz_min_max": [pfz_lo, pfz_hi],
+            "outside_pyramid": pyr_viol, "tolerance_pyramid": TOL_PYRAMID,
+            "force_err_vs_plain_executor": pyr_err,
+            "tolerance": TOL_LEG_PLAIN, "qp_mu": float(psol.qp_mu),
+            "step_size": psol.step_size.tolist()}
 
-    # Phase 8: legged main path, fleet of 512 scenarios: one K4 launch.
-    reset_counts()
-    lsolf = lsolver(*lmany)
+
+def phase_legged_fleet(kit, lsol) -> dict:
+    """The legged main path on a fleet of 512 scenarios: one K4 launch,
+    against the plain executor, element 0 against its batch-1 solve
+    ``lsol``."""
+    from cheeta_mpc_tpu_torch.mpc.legged_mpc import build_legged_solver
+    kit.reset_counts()
+    lsolf = kit.lsolver(*kit.lmany)
     torch.cuda.synchronize()
-    launches_k4 = k4.launches
-    check(counts() == [0, 0, 0, 1, 1],
-          f"legged fleet main path launched K1..K4, L1 {counts()}x; "
+    launches_k4 = kit.k4.launches
+    check(kit.counts() == [0, 0, 0, 1, 1],
+          f"legged fleet main path launched K1..K4, L1 {kit.counts()}x; "
           "expected [0, 0, 0, 1, 1]")
-    ffz_lo, ffz_hi = check_legged_forces(lsolf, lmany[2], "legged fleet")
+    ffz_lo, ffz_hi = check_legged_forces(lsolf, kit.lmany[2], "legged fleet")
     check(bool(torch.isnan(lsolf.gains_P).all())
           and bool(torch.isfinite(lsolf.gains_K).all()),
           "legged fleet: expected NaN P and finite K from K4")
     lplain = build_legged_solver(
-        lcfg, lscp._replace(qp_backend="riccati"), device=dev)(*lmany)
+        kit.lcfg, kit.lscp._replace(qp_backend="riccati"),
+        device=kit.dev)(*kit.lmany)
     torch.cuda.synchronize()
     lfleet_err = max_abs(lsolf.forces, lplain.forces)
     check(lfleet_err <= TOL_LEG_PLAIN,
@@ -2120,144 +2189,78 @@ def main() -> int:
     check(lel0_err <= TOL_LEG_PLAIN,
           f"legged fleet element 0 differs from its batch-1 solve by "
           f"{lel0_err} N")
-    emit({"phase": "legged_fleet", "batch": LEGGED_FLEET,
-          "k4_launches": launches_k4, "total_fz_min_max": [ffz_lo, ffz_hi],
-          "force_err_vs_plain_executor": lfleet_err,
-          "element0_vs_batch1": lel0_err, "tolerance": TOL_LEG_PLAIN})
+    return {"phase": "legged_fleet", "batch": LEGGED_FLEET,
+            "k4_launches": launches_k4, "total_fz_min_max": [ffz_lo, ffz_hi],
+            "force_err_vs_plain_executor": lfleet_err,
+            "element0_vs_batch1": lel0_err, "tolerance": TOL_LEG_PLAIN}
 
-    # Phase 8b: L1, the legged linearization kernel that every legged solve
-    # above ran once per SQP iteration.
-    l1_report = phase_legged_linearize(dev, card)
-    emit(l1_report)
 
-    # Phase 9: times (CUDA events, median of 10 after warm-up).
-    t_k1 = median_ms(lambda: k1(qp1, ipm))
-    t_k2 = median_ms(lambda: k2(qpf, ipm))
-    t_k1_plain = median_ms(lambda: k1_plain(qp1, ipm), repeats=10, warmup=1)
-    t_k2_plain = median_ms(lambda: k2_plain(qpf, ipm), repeats=10, warmup=1)
-    t_solve1 = wall_ms(lambda: mpc.update_mpc(*one))
-    t_solvef = wall_ms(lambda: mpc.update_mpc(*many))
-    qpls = contig(lsolver.initial_qp(*lsmall))
-    t_k3 = median_ms(lambda: k3(qpl, reg=leg_reg))
-    t_k4 = median_ms(lambda: k4(qplf, reg=leg_reg))
-    t_k4_small = median_ms(lambda: k4(qpls, reg=leg_reg))
-    t_k1_pyr = median_ms(lambda: k1(qpp, ipm_pyr), repeats=5)
-    t_k3_plain = median_ms(lambda: k3_plain(qpl, reg=leg_reg), repeats=3,
-                           warmup=1)
-    t_k4_plain = median_ms(lambda: k4_plain(qplf, reg=leg_reg), repeats=3,
-                           warmup=1)
-    t_lsolve1 = wall_ms(lambda: lsolver(*lone), repeats=5, warmup=1)
-    t_lsolve_pyr = wall_ms(lambda: lsolver_pyr(*lone), repeats=5, warmup=1)
-    t_lsolvef = wall_ms(lambda: lsolver(*lmany), repeats=5, warmup=1)
-    t_lsolves = wall_ms(lambda: lsolver(*lsmall), repeats=5, warmup=1)
-    emit({"phase": "times", "card": card, "k1_ms": t_k1, "k2_ms": t_k2,
-          "k1_plain_ms": t_k1_plain, "k2_plain_ms": t_k2_plain,
-          "solve_batch1_ms": t_solve1, "solve_fleet_ms": t_solvef,
-          "fleet_solves_per_s": 1e3 * FLEET / t_solvef,
-          "k3_ms": t_k3, "k4_ms": t_k4,
-          f"k4_batch{LEGGED_FLEET_SMALL}_ms": t_k4_small,
-          "k1_legged_pyramid_ms": t_k1_pyr,
-          "k3_plain_ms": t_k3_plain, "k4_plain_ms": t_k4_plain,
-          "legged_solve_batch1_ms": t_lsolve1,
-          "legged_pyramid_batch1_ms": t_lsolve_pyr,
-          "legged_solve_fleet_ms": t_lsolvef,
-          f"legged_fleet_solves_per_s_batch{LEGGED_FLEET}":
-              1e3 * LEGGED_FLEET / t_lsolvef,
-          f"legged_fleet_solves_per_s_batch{LEGGED_FLEET_SMALL}":
-              1e3 * LEGGED_FLEET_SMALL / t_lsolves,
-          "peak_device_bytes": torch.cuda.max_memory_allocated()})
-    legged_cost = host_cost(lambda: lsolver(*lone))
-    legged_cost["sync_debug_warnings"] = sync_warnings(
-        lambda: lsolver(*lone))
-    emit({"phase": "host_cost",
-          "batch1": host_cost(lambda: mpc.update_mpc(*one)),
-          "fleet": host_cost(lambda: mpc.update_mpc(*many)),
-          "legged_batch1": legged_cost,
-          "legged_pyramid_batch1": host_cost(lambda: lsolver_pyr(*lone)),
-          "legged_fleet": host_cost(lambda: lsolver(*lmany))})
+def kernel_shapes(kit):
+    """The launch shapes of phases ``kernel_phases`` and ``occupancy``:
+    ``(name, entry, qp, settings)`` of K1/K2 and ``(name, entry, qp)`` of
+    K3/K4."""
+    eq = kit.eq_single_mod
+    return ((("k1_centroidal", "cheeta_ipm_riccati_single", kit.qp1,
+              kit.ipm),
+             ("k1_legged_pyramid", "cheeta_ipm_riccati_single", kit.qpp,
+              kit.ipm_pyr),
+             (f"k2_batch{FLEET}", "cheeta_ipm_riccati_fleet", kit.qpf,
+              kit.ipm)),
+            (("k3_legged", eq.SINGLE_ENTRY, kit.qpl),
+             (f"k4_batch{LEGGED_FLEET}", eq.FLEET_ENTRY, kit.qplf),
+             (f"k4_batch{LEGGED_FLEET_SMALL}", eq.FLEET_ENTRY, kit.qpls)))
 
-    # Phase 10: the kernels.
-    def shape_of(qp):
-        return (qp.dyn.horizon, qp.dyn.nx, qp.dyn.nu)
 
-    flops1 = ipm_flops(*shape_of(qp1), qp1.con.ng, 0, IPM_ITERS)
-    flops2 = FLEET * ipm_flops(*shape_of(qpf), qpf.con.ng, 0, IPM_ITERS)
-    flops3 = eq_flops(*shape_of(qpl), qpl.eq.nc)
-    flops4 = LEGGED_FLEET * eq_flops(*shape_of(qplf), qplf.eq.nc)
-    (b1, by1), bytes1 = bound(
-        qp1, [s1.dx, s1.du, s1.s_l, s1.s_u, s1.lam_l, s1.lam_u,
-              *tensors_of(s1.gains)], flops1)
-    (b2, by2), bytes2 = bound(
-        qpf, [sf.dx, sf.du, sf.s_l, sf.s_u, sf.lam_l, sf.lam_u], flops2)
-    (b3, by3), bytes3 = bound(
-        qpl, [s3.dx, s3.du, *tensors_of(s3.gains)], flops3)
-    (b4, by4), bytes4 = bound(
-        qplf, [s4.dx, s4.du, s4.gains.K, s4.gains.k], flops4)
-    # K1 at the legged pyramid shape and K4 at the small fleet, from the
-    # same shapes and this run's tensors.
-    spyr = k1(qpp, ipm_pyr)
-    s4s = k4(qpls, reg=leg_reg)
-    torch.cuda.synchronize()
-    flops1p = ipm_flops(*shape_of(qpp), qpp.con.ng, qpp.eq.nc,
-                        PYRAMID_IPM_ITERS)
-    flops4s = LEGGED_FLEET_SMALL * eq_flops(*shape_of(qpls), qpls.eq.nc)
-    (b1p, by1p), bytes1p = bound(
-        qpp, [spyr.dx, spyr.du, spyr.s_l, spyr.s_u, spyr.lam_l, spyr.lam_u,
-              *tensors_of(spyr.gains)], flops1p)
-    (b4s, by4s), bytes4s = bound(
-        qpls, [s4s.dx, s4s.du, s4s.gains.K, s4s.gains.k], flops4s)
-    emit({"phase": "bounds", "k1": {"bytes": bytes1, "flops": flops1},
-          "k1_legged_pyramid": {"bytes": bytes1p, "flops": flops1p,
-                                "bound_ms": b1p, "bound_by": by1p},
-          "k2": {"bytes": bytes2, "flops": flops2},
-          "k3": {"bytes": bytes3, "flops": flops3},
-          "k4": {"bytes": bytes4, "flops": flops4},
-          f"k4_batch{LEGGED_FLEET_SMALL}": {
-              "bytes": bytes4s, "flops": flops4s, "bound_ms": b4s,
-              "bound_by": by4s},
-          "peaks": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
-                    "f32_flops": F32_FLOPS}})
-
-    # Phase 11: inside the kernels. Timed launches per shape (section
-    # timers: cycles of thread 0 per class of barrier phase) beside plain
-    # ones, so that the timers' own cost shows, and what the card makes of
-    # each launch shape.
-    shapes = (("k1_centroidal", "cheeta_ipm_riccati_single", qp1, ipm),
-              ("k1_legged_pyramid", "cheeta_ipm_riccati_single", qpp,
-               ipm_pyr),
-              (f"k2_batch{FLEET}", "cheeta_ipm_riccati_fleet", qpf, ipm))
-    eq_shapes = (("k3_legged", eq_single_mod.SINGLE_ENTRY, qpl),
-                 (f"k4_batch{LEGGED_FLEET}", eq_single_mod.FLEET_ENTRY, qplf),
-                 (f"k4_batch{LEGGED_FLEET_SMALL}", eq_single_mod.FLEET_ENTRY,
-                  qpls))
-    phases = {name: single_mod.phase_cycles(entry, qp, st)
+def phase_kernel_phases(kit) -> dict:
+    """Inside the kernels: timed launches per shape (section timers:
+    cycles of thread 0 per class of barrier phase) beside plain ones
+    (``untimed_ms``), so that the timers' own cost shows."""
+    shapes, eq_shapes = kernel_shapes(kit)
+    phases = {name: kit.single_mod.phase_cycles(entry, qp, st)
               for name, entry, qp, st in shapes}
-    phases.update({name: eq_single_mod.phase_cycles(entry, qp, reg=leg_reg)
+    phases.update({name: kit.eq_single_mod.phase_cycles(entry, qp,
+                                                        reg=kit.leg_reg)
                    for name, entry, qp in eq_shapes})
     for ph in phases.values():
         ph["timed_over_untimed"] = ph["timed_ms"] / ph["untimed_ms"]
-    emit({"phase": "kernel_phases", "card": card, **phases})
-    occupancy = {name: single_mod.launch_occupancy(entry, qp, st)
+    return {"phase": "kernel_phases", "card": kit.card, **phases}
+
+
+def phase_occupancy(kit) -> dict:
+    """What the card makes of each launch shape: blocks or problems per
+    SM, registers, spills and waves. Gated: two K2 blocks and four K4
+    problems per SM."""
+    shapes, eq_shapes = kernel_shapes(kit)
+    occupancy = {name: kit.single_mod.launch_occupancy(entry, qp, st)
                  for name, entry, qp, st in shapes}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = torch.cuda.get_device_properties(kit.dev).multi_processor_count
     for (name, _, qp, _), occ in zip(shapes, occupancy.values()):
         blocks = qp.dx0.shape[0] if qp.dx0.dim() == 2 else 1
         occ["waves"] = -(-blocks // (sms * occ["blocks_per_sm"]))
-    occupancy.update({name: eq_single_mod.launch_occupancy(entry, qp)
+    occupancy.update({name: kit.eq_single_mod.launch_occupancy(entry, qp)
                       for name, entry, qp in eq_shapes})
-    emit({"phase": "occupancy", "sms": sms, **occupancy})
     check(occupancy[f"k2_batch{FLEET}"]["blocks_per_sm"] >= 2,
           f"K2 at batch {FLEET} holds fewer than two blocks per SM: "
           f"{occupancy[f'k2_batch{FLEET}']}")
+    k4_occ = occupancy[f"k4_batch{LEGGED_FLEET}"]
+    check(k4_occ["problems_per_sm"] >= 4,
+          f"K4 at batch {LEGGED_FLEET} holds fewer than four problems per "
+          f"SM: {k4_occ}")
+    return {"phase": "occupancy", "sms": sms, **occupancy}
 
-    # Phase 12: K4's batch sweep on the legged fleet's QP, repeated along
-    # the batch: kernel ms, problems/s, bound and waves at each size.
+
+def phase_k4_batch_sweep(kit) -> dict:
+    """K4 on the legged fleet's QP, repeated along the batch: kernel ms,
+    problems/s, bound and waves at each of ``SWEEP_BATCHES``."""
+    from cheeta_mpc_tpu_torch.core.types import tree_map
+    k4, leg_reg = kit.k4, kit.leg_reg
+
     def fleet_of(batch):
         reps = -(-batch // LEGGED_FLEET)
         return contig(tree_map(
             lambda t: (t.repeat((reps,) + (1,) * (t.dim() - 1))[:batch]
                        if t.dim() and t.shape[0] == LEGGED_FLEET else t),
-            qplf))
+            kit.qplf))
 
     sweep = {}
     for batch in SWEEP_BATCHES:
@@ -2269,34 +2272,35 @@ def main() -> int:
         ms = median_ms(lambda: k4(qpb, reg=leg_reg), repeats=5)
         (bb, byb), _ = bound(qpb, [sb.dx, sb.du, sb.gains.K, sb.gains.k],
                              batch * eq_flops(*shape_of(qpb), qpb.eq.nc))
-        occ = eq_single_mod.launch_occupancy(eq_single_mod.FLEET_ENTRY, qpb)
+        occ = kit.eq_single_mod.launch_occupancy(
+            kit.eq_single_mod.FLEET_ENTRY, qpb)
         sweep[batch] = {"ms": ms, "problems_per_s": 1e3 * batch / ms,
                         "bound_ms": bb, "bound_by": byb,
                         "waves": occ["waves"]}
         del qpb, sb
-    emit({"phase": "k4_batch_sweep", "card": card, "batches": sweep})
-    k4_occ = occupancy[f"k4_batch{LEGGED_FLEET}"]
-    check(k4_occ["problems_per_sm"] >= 4,
-          f"K4 at batch {LEGGED_FLEET} holds fewer than four problems per "
-          f"SM: {k4_occ}")
+    return {"phase": "k4_batch_sweep", "card": kit.card, "batches": sweep}
 
-    # Phase 13: each path as one CUDA graph per solve against its eager run
-    # on the same inputs, as numpy: the graphed solvers of the entry points
-    # (the one CentroidalMPC.update_mpc calls; utils.cuda_graph.graphed
-    # around the legged solver, as the legged planning node builds it).
-    glsolver = graphed(lsolver, dev)
-    glsolver_pyr = graphed(lsolver_pyr, dev)
+
+def phase_graph_vs_eager(kit) -> dict:
+    """Each main path as one CUDA graph per solve against its eager run on
+    the same inputs, as numpy: the graphed solvers of the entry points (the
+    one ``CentroidalMPC.update_mpc`` calls; ``utils.cuda_graph.graphed``
+    around the legged solver, as the legged planning node builds it).
+    Gated: results equal bit for bit, K1..K4 and L1 by name in a profiled
+    replay, no kernel wrapper called, 0 host kernel launches and 1 graph
+    launch per solve. The graphed host p50 is read by phase
+    ``device_timing``."""
     graph_paths = (
-        ("centroidal_batch1", solver, mpc.solver, one, "contact_force",
-         [SQP_ITERS, 0, 0, 0, 0]),
-        (f"centroidal_fleet{FLEET}", solver, mpc.solver, many,
+        ("centroidal_batch1", kit.solver, kit.mpc.solver, kit.one,
+         "contact_force", [SQP_ITERS, 0, 0, 0, 0]),
+        (f"centroidal_fleet{FLEET}", kit.solver, kit.mpc.solver, kit.many,
          "contact_force", [0, SQP_ITERS, 0, 0, 0]),
-        ("legged_soft_batch1", lsolver, glsolver, lone_np.args, "forces",
-         [0, 0, 1, 0, 1]),
-        ("legged_pyramid_batch1", lsolver_pyr, glsolver_pyr, lone_np.args,
-         "forces", [1, 0, 0, 0, 1]),
-        (f"legged_fleet{LEGGED_FLEET}", lsolver, glsolver, lmany_np.args,
-         "forces", [0, 0, 0, 1, 1]))
+        ("legged_soft_batch1", kit.lsolver, kit.glsolver,
+         kit.lone_np.args, "forces", [0, 0, 1, 0, 1]),
+        ("legged_pyramid_batch1", kit.lsolver_pyr, kit.glsolver_pyr,
+         kit.lone_np.args, "forces", [1, 0, 0, 0, 1]),
+        (f"legged_fleet{LEGGED_FLEET}", kit.lsolver, kit.glsolver,
+         kit.lmany_np.args, "forces", [0, 0, 0, 1, 1]))
     graph_report = {}
     for name, eager, graph_fn, args, out_name, want in graph_paths:
         graph_fn(*args)  # captures the graph if this signature has none
@@ -2310,11 +2314,12 @@ def main() -> int:
             to_host(sol)
             return sol
 
-        reset_counts()
+        kit.reset_counts()
         tr, sol_g = trace_counts(replay)
-        check(tr["kernels"] == want and counts() == idle,
+        check(tr["kernels"] == want and kit.counts() == IDLE,
               f"{name}: a profiled replay ran K1..K4, L1 {tr['kernels']}x and "
-              f"called their wrappers {counts()}x; expected {want} and none")
+              f"called their wrappers {kit.counts()}x; expected {want} and "
+              "none")
         check(tr["host_kernel_launches"] == 0 and tr["graph_launches"] == 1,
               f"{name}: a graphed solve made {tr['host_kernel_launches']} "
               f"kernel launches and {tr['graph_launches']} graph launches "
@@ -2332,32 +2337,33 @@ def main() -> int:
                         for k in diff)
         check(bit_equal, f"{name}: graphed and eager results differ: {diff}")
         tr_eager, _ = trace_counts(lambda: to_host(eager(*args)))
-        wall_e = wall_spread(lambda: to_host(eager(*args)), n=EAGER_SOLVES)
-        wall_g = wall_spread(lambda: to_host(graph_fn(*args)))
         graph_report[name] = {
             "graphed_vs_eager_max_abs": diff, "bit_equal": bit_equal,
             "replay": tr,
             "eager_host_kernel_launches": tr_eager["host_kernel_launches"],
             "eager_device_ms": tr_eager["device_ms"],
             "graph": graph_fn.entry_of(*args).stats,
-            "eager_ms": wall_e, "graphed_ms": wall_g,
-            "graphed_p50_within_20ms": wall_g["p50"] <= BUDGET_MS,
-            "graphed_p99_within_30ms": wall_g["p99"] <= BUDGET_P99_MS}
-    emit({"phase": "graph_vs_eager", "card": card,
-          "graphed_solves": GRAPH_SOLVES, "eager_solves": EAGER_SOLVES,
-          "paths": graph_report})
+            "graphed_ms": wall_spread(lambda: to_host(graph_fn(*args)))}
+    return {"phase": "graph_vs_eager", "card": kit.card,
+            "graphed_solves": GRAPH_SOLVES, "paths": graph_report}
 
-    # Phase 14: the on-device loop: a cold solve and LOOP_TICKS warm-started
-    # receding-horizon ticks on an all-stance hold, captured as one graph.
+
+def phase_closed_loop(kit) -> dict:
+    """The on-device loop: a cold solve and ``LOOP_TICKS`` warm-started
+    receding-horizon ticks on an all-stance hold, captured as one graph;
+    against a warm re-solve at tick 0 and the f64 CPU loop."""
+    from cheeta_mpc_tpu_torch.examples import make_example_inputs
     from cheeta_mpc_tpu_torch.mpc.centroidal_mpc import \
         build_centroidal_mpc_loop
+    cfg, scp, solver = kit.cfg, kit.scp, kit.solver
     stance = make_example_inputs(cfg, gait="stance")
     loop = build_centroidal_mpc_loop(cfg, scp, n_ticks=LOOP_TICKS,
-                                     device=dev)
+                                     device=kit.dev)
     want_loop = [SQP_ITERS * (LOOP_TICKS + 1), 0, 0, 0, 0]
-    tr_loop, (xs, fs) = graphed_run("closed loop", lambda: loop(*stance),
-                                    want_loop)
-    check(tuple(xs.shape) == (LOOP_TICKS, sol1.x_traj.shape[-1])
+    tr_loop, (xs, fs) = kit.graphed_run("closed loop", lambda: loop(*stance),
+                                        want_loop)
+    cold = solver(*stance)
+    check(tuple(xs.shape) == (LOOP_TICKS, cold.x_traj.shape[-1])
           and tuple(fs.shape) == (LOOP_TICKS, 4, 3),
           f"closed loop: shapes {tuple(xs.shape)}, {tuple(fs.shape)}")
     check(bool(torch.isfinite(xs).all()) and bool(torch.isfinite(fs).all()),
@@ -2369,33 +2375,35 @@ def main() -> int:
           "by more than 5 %")
     dz = float((xs[-1, 2] - xs[0, 2]).abs())
     check(dz < 0.01, f"closed loop: CoM height drifts by {dz} m")
-    cold = solver(*stance)
     warm1 = solver(*stance, warm=(cold.x_traj, cold.u_traj))
     tick0 = max_abs(fs[0], warm1.contact_force[..., 0])
     check(tick0 <= 1e-4,
           f"closed loop: tick 0 differs from the warm re-solve by {tick0} N")
     xs64, fs64 = build_centroidal_mpc_loop(
-        cfg._replace(dtype=torch.float64), scp64, n_ticks=LOOP_TICKS,
+        cfg._replace(dtype=torch.float64), kit.scp64, n_ticks=LOOP_TICKS,
         device="cpu")(*stance)
     loop_err = max_abs(fs.cpu(), fs64)
     check(loop_err <= TOL_GRF,
           f"closed loop: forces differ from the f64 CPU loop by {loop_err} N")
     loop_wall = wall_spread(lambda: [t.cpu() for t in loop(*stance)], n=20,
                             warmup=1)
-    emit({"phase": "closed_loop", "card": card, "ticks": LOOP_TICKS,
-          "closed_loop_hz": 1e3 * LOOP_TICKS / loop_wall["p50"],
-          "replay_ms": loop_wall, "k1_launches": tr_loop["kernels"][0],
-          "replay": tr_loop, "graph": loop.entry_of(*stance).stats,
-          "total_fz_min_max": [float(loop_fz.min()), float(loop_fz.max())],
-          "com_z_drift": dz, "tick0_vs_warm_solve": tick0,
-          "force_err_vs_f64_cpu_loop": loop_err,
-          "state_err_vs_f64_cpu_loop": max_abs(xs.cpu(), xs64),
-          "tolerance": TOL_GRF})
+    return {"phase": "closed_loop", "card": kit.card, "ticks": LOOP_TICKS,
+            "closed_loop_hz": 1e3 * LOOP_TICKS / loop_wall["p50"],
+            "replay_ms": loop_wall, "k1_launches": tr_loop["kernels"][0],
+            "replay": tr_loop, "graph": loop.entry_of(*stance).stats,
+            "total_fz_min_max": [float(loop_fz.min()), float(loop_fz.max())],
+            "com_z_drift": dz, "tick0_vs_warm_solve": tick0,
+            "force_err_vs_f64_cpu_loop": loop_err,
+            "state_err_vs_f64_cpu_loop": max_abs(xs.cpu(), xs64),
+            "tolerance": TOL_GRF}
 
-    # Phase 15: the legged planning node at the reference's scale, soft and
-    # pyramid cone, one SQP iteration per solve (the reference's real-time
-    # iteration), driven by the lock-step dummy loop, plant == model.
-    from cheeta_mpc_tpu_torch.gait.schedule import GaitSchedule, trot_template
+
+def phase_legged_node(kit):
+    """The legged planning node at the reference's scale, soft and pyramid
+    cone, one SQP iteration per solve (the reference's real-time
+    iteration), driven by the lock-step dummy loop, plant == model.
+    Returns the report and the soft node's observations, which phase
+    ``legged_ddp`` answers."""
     from cheeta_mpc_tpu_torch.models.srbd_legged import srbd_step
     from cheeta_mpc_tpu_torch.mpc.legged_node import (LeggedPlannerAssembly,
                                                       PlannerSettings,
@@ -2403,13 +2411,13 @@ def main() -> int:
     from cheeta_mpc_tpu_torch.mpc.runtime import (MpcMrtInterface,
                                                   SystemObservation,
                                                   run_dummy_loop)
+    from cheeta_mpc_tpu_torch.utils.cuda_graph import WARMUP_CALLS
     from cheeta_mpc_tpu_torch.utils.timing import Benchmarker
+    dev = kit.dev
     node_report = {}
-    for mode, ncfg, want in (("soft", lcfg, [0, 0, 1, 0, 1]),
-                             ("pyramid", lcfg_pyr, [1, 0, 0, 0, 1])):
-        gait = GaitSchedule.stance(trot_template(NODE_TROT_CYCLE), t0=0.0)
-        gait.phase_transition_stance_time = 0.1
-        gait.insert_template(trot_template(NODE_TROT_CYCLE), insert_time=0.2)
+    for mode, ncfg, want in (("soft", kit.lcfg, [0, 0, 1, 0, 1]),
+                             ("pyramid", kit.lcfg_pyr, [1, 0, 0, 0, 1])):
+        gait = node_gait()
         x0 = default_stance_state(ncfg)
         node = LeggedPlannerAssembly(
             ncfg, gait, x0, v_cmd=np.array([NODE_SPEED, 0.0, 0.0]),
@@ -2434,13 +2442,13 @@ def main() -> int:
                              torch.as_tensor(np.asarray(e, np.float64)),
                              dt=NODE_MRT_DT).numpy()
 
-        reset_counts()
+        kit.reset_counts()
         res = run_dummy_loop(MpcMrtInterface(node.solve_fn), plant, x0=x0,
                              mrt_dt=NODE_MRT_DT, mpc_update_ratio=NODE_RATIO,
                              n_steps=NODE_STEPS)
         # The first solve captures the graph after the warm-up solves; every
         # later solve replays it and calls no kernel wrapper.
-        capture_counts = counts()
+        capture_counts = kit.counts()
         want_run = [(WARMUP_CALLS + 1) * w for w in want]
         check(capture_counts == want_run and len(node_solve.graphs) == 1,
               f"legged node ({mode}): K1..K4, L1 launched {capture_counts}x "
@@ -2463,14 +2471,14 @@ def main() -> int:
               f"legged node ({mode}): a stance force leaves the pyramid by "
               f"{pyr_viol} N")
         obs = SystemObservation(time=res.times[-1], state=res.states[-1])
-        reset_counts()
+        kit.reset_counts()
         tr_node, _ = trace_counts(lambda: node.solve_fn(obs))
-        check(tr_node["kernels"] == want and counts() == idle
+        check(tr_node["kernels"] == want and kit.counts() == IDLE
               and tr_node["graph_launches"] == 1,
               f"legged node ({mode}): a profiled solve ran K1..K4, L1 "
               f"{tr_node['kernels']}x in {tr_node['graph_launches']} graph "
-              f"launches and called their wrappers {counts()}x; expected "
-              f"{want} in one and none")
+              f"launches and called their wrappers {kit.counts()}x; "
+              f"expected {want} in one and none")
         steady = Benchmarker()
         steady.samples_ms = node.bench.samples_ms[1:]  # after the capture
         if mode == "soft":  # the observations phase legged_ddp answers
@@ -2491,170 +2499,57 @@ def main() -> int:
                                                 - x0[8]).max()),
             "roll_pitch_max": float(np.abs(res.states[:, 10:12]).max()),
             "last_metrics": node.last_metrics}
-    emit({"phase": "legged_node", "card": card, "horizon": LEGGED_HORIZON,
-          "speed": NODE_SPEED, "mrt_dt": NODE_MRT_DT,
-          "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO),
-          "seconds_simulated": NODE_MRT_DT * NODE_STEPS, **node_report})
+    return {"phase": "legged_node", "card": kit.card,
+            "horizon": LEGGED_HORIZON, "speed": NODE_SPEED,
+            "mrt_dt": NODE_MRT_DT,
+            "mpc_hz": 1.0 / (NODE_MRT_DT * NODE_RATIO),
+            "seconds_simulated": NODE_MRT_DT * NODE_STEPS,
+            **node_report}, sqp_observations
 
-    # Phases 16-17: the batched legged pyramid mode (K2 with stage
-    # equalities), the convex SRB MPC (K1 and K2 at the SRB shape).
-    kit = types.SimpleNamespace(
-        k1=k1, k1_plain=k1_plain, k2=k2, k2_plain=k2_plain,
-        single_mod=single_mod, graphed_run=graphed_run,
-        reset_counts=reset_counts, counts=counts)
-    pyr_report, k2_eq_row = phase_pyramid_fleet(
-        dev, card, kit, lsolver_pyr, glsolver_pyr, ipm_pyr, lcfg_pyr,
-        lmany_np)
-    emit(pyr_report)
-    cvx_report, srb_rows, convex, cvx_solve = phase_convex_mpc(dev, card,
-                                                               kit)
-    emit(cvx_report)
 
-    # Phase 18: device time per solve by the slope over chained CUDA-graph
-    # replays, on the five paths of phase 13, the pyramid fleet of 128 of
-    # phase 16 and the convex trot at 1 and 4096 of phase 17, each beside
-    # that phase's readings of the path. The DDP solve (one graph of
-    # ~160,000 nodes) is left out: a chain would be k times that.
-    def seen(entry):  # a path's graphed host p50 and replay device ms
-        return entry["graphed_ms"]["p50"], entry["replay"]["device_ms"]
-
-    def force(sol):
-        return sol.forces
-
-    cent_flops = centroidal_solve_flops(*shape_of(qp1), qp1.con.ng,
-                                        SQP_ITERS, IPM_ITERS)
-    lsmall_np = tuple(a[:LEGGED_FLEET_SMALL] for a in lmany_np.args)
-    qp_pyr_small = contig(lsolver_pyr.initial_qp(*lsmall))
-    cvx1, cvxf = (convex_scenarios(b, "trot") for b in (1, CONVEX_FLEET))
-    qp_cvx1, qp_cvxf = (contig(cvx_solve.initial_qp(*a)) for a in (cvx1, cvxf))
-    cvx_eager, cvx_ipm = cvx_solve.__wrapped__, convex[1]
-    paths = [
-        TimedPath("centroidal_batch1", solver, on_card(one),
-                  lambda: mpc.solver(*one), lambda s: s.contact_force, 1,
-                  [SQP_ITERS, 0, 0, 0, 0], lambda: k1(qp1, ipm),
-                  *seen(graph_report["centroidal_batch1"]), TOL_PRIMAL,
-                  cent_flops),
-        TimedPath(f"centroidal_fleet{FLEET}", solver, on_card(many),
-                  lambda: mpc.solver(*many), lambda s: s.contact_force,
-                  FLEET, [0, SQP_ITERS, 0, 0, 0], lambda: k2(qpf, ipm),
-                  *seen(graph_report[f"centroidal_fleet{FLEET}"]),
-                  TOL_PRIMAL, cent_flops),
-        TimedPath("legged_soft_batch1", lsolver, lone,
-                  lambda: glsolver(*lone_np.args), force, 1,
-                  [0, 0, 1, 0, 1],
-                  lambda: k3(qpl, reg=leg_reg),
-                  *seen(graph_report["legged_soft_batch1"]), TOL_LEG_PLAIN),
-        TimedPath("legged_pyramid_batch1", lsolver_pyr, lone,
-                  lambda: glsolver_pyr(*lone_np.args), force, 1,
-                  [1, 0, 0, 0, 1], lambda: k1(qpp, ipm_pyr),
-                  *seen(graph_report["legged_pyramid_batch1"]),
-                  TOL_LEG_PLAIN),
-        TimedPath(f"legged_fleet{LEGGED_FLEET}", lsolver, lmany,
-                  lambda: glsolver(*lmany_np.args), force, LEGGED_FLEET,
-                  [0, 0, 0, 1, 1], lambda: k4(qplf, reg=leg_reg),
-                  *seen(graph_report[f"legged_fleet{LEGGED_FLEET}"]),
-                  TOL_LEG_PLAIN),
-        TimedPath(f"legged_pyramid_fleet{LEGGED_FLEET_SMALL}", lsolver_pyr,
-                  lsmall, lambda: glsolver_pyr(*lsmall_np), force,
-                  LEGGED_FLEET_SMALL, [0, 1, 0, 0, 1],
-                  lambda: k2(qp_pyr_small, ipm_pyr),
-                  *seen(pyr_report[f"batch{LEGGED_FLEET_SMALL}"]),
-                  TOL_LEG_PLAIN),
-        TimedPath("convex_trot_batch1", cvx_eager, on_card(cvx1),
-                  lambda: cvx_solve(*cvx1), lambda s: s[0], 1,
-                  [1, 0, 0, 0, 0],
-                  lambda: k1(qp_cvx1, cvx_ipm),
-                  *seen(cvx_report["trot_batch1"]), TOL_PRIMAL),
-        TimedPath(f"convex_trot_fleet{CONVEX_FLEET}", cvx_eager,
-                  on_card(cvxf), lambda: cvx_solve(*cvxf), lambda s: s[0],
-                  CONVEX_FLEET, [0, 1, 0, 0, 0],
-                  lambda: k2(qp_cvxf, cvx_ipm),
-                  *seen(cvx_report[f"trot_batch{CONVEX_FLEET}"]),
-                  TOL_PRIMAL)]
-    emit(phase_device_timing(dev, card, kit, paths))
-
-    # Phases 19-20: the projected equality mode and the condensed backend,
-    # the scenario mesh.
-    emit(phase_projected_condensed(dev, card, kit, load_util(), cfg, scp,
-                                   mpc, one, many))
-    emit(phase_mesh(dev, card, kit, convex, solf))
-
-    # Phase 21: the DDP planning node. Phase 22: the deployed two-process
-    # topology with the SQP node on the card (K3 with the soft cone, K1
-    # with the pyramid cone, in the planner's own process).
-    emit(phase_legged_ddp(dev, card, lcfg, sqp_observations))
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs on a GPU only", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    report, card = phase_device(dev)
+    emit(report)
+    emit(phase_build())
+    emit(phase_spd_inverse(dev, card))
+    kit = Kit(dev, card)
+    emit(phase_kernel_vs_plain(kit))
+    emit(phase_main_path_batch1(kit))
+    report, solf = phase_main_path_fleet(kit)
+    emit(report)
+    report, lsol = phase_legged_batch1(kit)
+    emit(report)
+    emit(phase_legged_pyramid_batch1(kit))
+    emit(phase_legged_fleet(kit, lsol))
+    emit(phase_legged_linearize(dev, card))
+    emit(phase_kernel_phases(kit))
+    emit(phase_occupancy(kit))
+    emit(phase_k4_batch_sweep(kit))
+    graph = phase_graph_vs_eager(kit)
+    emit(graph)
+    emit(phase_closed_loop(kit))
+    report, sqp_observations = phase_legged_node(kit)
+    emit(report)
+    pyramid = phase_pyramid_fleet(kit)
+    emit(pyramid)
+    convex, convex_setup, convex_solve = phase_convex_mpc(kit)
+    emit(convex)
+    emit(phase_device_timing(kit, timed_paths(
+        kit, graph, pyramid, convex, convex_setup, convex_solve)))
+    emit(phase_projected_condensed(kit))
+    emit(phase_mesh(kit, convex_setup, solf))
+    emit(phase_legged_ddp(kit, sqp_observations))
     emit(phase_launch(dev, card))
-
-    # Phase 23: the benchmark program in a process of its own that never
-    # started a profiler, last, so that no earlier phase shares the card
-    # with it.
-    emit(phase_bench(card, graph_report))
-
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    print(card, flush=True)
-    emit({"kernels": [
-        {"name": "ipm_riccati_single", "route": "cuda",
-         "source": "cheeta_mpc_tpu_torch/csrc/ipm_riccati_single.cu",
-         "replaces": "cheeta_mpc_tpu/ops/pallas_ipm_riccati.py:455",
-         "launches": launches_k1,
-         "max_abs_err": max(err_k1["dx"], err_k1["du"]),
-         "ms": t_k1, "plain_ms": t_k1_plain, "bound_ms": b1,
-         "bound_by": by1, "library_ms": None,
-         "k1_legged_pyramid_ms": t_k1_pyr,
-         "k1_legged_pyramid_bound_ms": b1p,
-         "k1_srb_ms": srb_rows["k1"]["ms"],
-         "k1_srb_plain_ms": srb_rows["k1"]["plain_ms"],
-         "k1_srb_bound_ms": srb_rows["k1"]["bound_ms"],
-         "k1_srb_max_abs_err": srb_rows["k1"]["max_abs_err"]},
-        {"name": "ipm_riccati_fleet", "route": "cuda",
-         "source": "cheeta_mpc_tpu_torch/csrc/ipm_riccati_fleet.cu",
-         "replaces": "cheeta_mpc_tpu/ops/pallas_ipm_batch.py:620",
-         "launches": launches_k2,
-         "max_abs_err": max(err_k2["dx"], err_k2["du"]),
-         "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": b2,
-         "bound_by": by2, "library_ms": None,
-         "k2_eq_pyramid_ms": k2_eq_row["ms"],
-         "k2_eq_pyramid_plain_ms": k2_eq_row["plain_ms"],
-         "k2_eq_pyramid_bound_ms": k2_eq_row["bound_ms"],
-         "k2_eq_pyramid_launches": k2_eq_row["launches"],
-         "k2_eq_pyramid_max_abs_err": k2_eq_row["max_abs_err"],
-         "k2_srb_ms": srb_rows["k2"]["ms"],
-         "k2_srb_plain_ms": srb_rows["k2"]["plain_ms"],
-         "k2_srb_bound_ms": srb_rows["k2"]["bound_ms"],
-         "k2_srb_max_abs_err": srb_rows["k2"]["max_abs_err"]},
-        {"name": "eq_riccati_single", "route": "cuda",
-         "source": "cheeta_mpc_tpu_torch/csrc/eq_riccati_single.cu",
-         "replaces": "cheeta_mpc_tpu/ops/pallas_riccati.py:241",
-         "launches": launches_k3,
-         "max_abs_err": max(err_k3["dx"], err_k3["du"]),
-         "ms": t_k3, "plain_ms": t_k3_plain, "bound_ms": b3,
-         "bound_by": by3, "library_ms": None},
-        {"name": "eq_riccati_fleet", "route": "cuda",
-         "source": "cheeta_mpc_tpu_torch/csrc/eq_riccati_fleet.cu",
-         "replaces": "cheeta_mpc_tpu/ops/pallas_eq_batch.py:325",
-         "launches": launches_k4,
-         "max_abs_err": max(err_k4["dx"], err_k4["du"]),
-         "ms": t_k4, "plain_ms": t_k4_plain, "bound_ms": b4,
-         "bound_by": by4, "library_ms": None,
-         f"k4_batch{LEGGED_FLEET_SMALL}_ms": t_k4_small,
-         f"k4_batch{LEGGED_FLEET_SMALL}_bound_ms": b4s},
-        {"name": "legged_linearize", "route": "cuda",
-         "source": "cheeta_mpc_tpu_torch/csrc/legged_linearize.cu",
-         "replaces": None, "launches": launches_l1,
-         "max_rel_err": l1_report["worst_rel_err"],
-         "ms": l1_report["times"]["batch1"]["ms"],
-         "plain_ms": l1_report["times"]["batch1"]["plain_ms"],
-         "bound_ms": l1_report["times"]["batch1"]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None,
-         f"batch{LEGGED_FLEET}_ms":
-             l1_report["times"][f"batch{LEGGED_FLEET}"]["ms"],
-         f"batch{LEGGED_FLEET}_plain_ms":
-             l1_report["times"][f"batch{LEGGED_FLEET}"]["plain_ms"],
-         f"batch{LEGGED_FLEET}_bound_ms":
-             l1_report["times"][f"batch{LEGGED_FLEET}"]["bound_ms"]},
-    ]})
     # The run uses one card, whatever the host holds.
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": 1}})
     return 0
 

@@ -82,23 +82,37 @@ def test_signature_keys_on_shapes_dtypes_and_given_keywords():
     hash(key(a, warm=(a, b), dts=a))
 
 
+def test_numpy_signature_is_read_without_a_copy():
+    """A numpy leaf's signature, read off the array, is the shape and dtype
+    of the tensor that its dense copy makes, at any layout and dtype."""
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal((4, 6))
+    arrays = [base, base.T, base[:, ::2], base[1], np.array(1.5),
+              np.zeros((0, 3)), base.astype(np.float32).T,
+              np.arange(6, dtype=np.int64).reshape(2, 3)[:, ::-1],
+              np.arange(5, dtype=np.int32), base > 0, np.uint8([1, 2])]
+    for a in arrays:
+        dense = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
+        assert cg._leaf_signature(a) == (tuple(dense.shape), dense.dtype)
+
+
 def test_host_inputs_stage_into_one_buffer_per_dtype():
-    """Host inputs of any memory layout (transposed, strided, CPU tensors)
-    copied into the views of one staging buffer per dtype arrive whole,
-    each in its own slot, and the buffer holds them in slot order."""
+    """Host inputs of any memory layout (transposed, strided, reversed, CPU
+    tensors) staged into the views of one staging buffer per dtype arrive
+    whole, each in its own slot, and the buffer holds them in slot order."""
     rng = np.random.default_rng(1)
     base = rng.standard_normal((4, 6))
     inputs = [base.T, base[:, ::2], np.arange(5, dtype=np.int32),
               torch.as_tensor(rng.standard_normal((2, 3))).t(),
-              np.array(rng.standard_normal())]
+              np.array(rng.standard_normal()), base[::-1, 1:4]]
     layout = cg._Layout([cg._leaf_signature(a) for a in inputs])
     buffers = layout.buffers()
     assert {d: b.numel() for d, b in buffers.items()} == {
-        torch.float64: 24 + 12 + 6 + 1, torch.int32: 5}
+        torch.float64: 24 + 12 + 6 + 1 + 12, torch.int32: 5}
     for src, dst in zip(inputs, layout.views(buffers)):
-        dst.copy_(cg._host_tensor(src))
+        cg._stage(src, dst)
     for src, view in zip(inputs, layout.views(buffers)):
-        assert torch.equal(view, torch.as_tensor(np.asarray(src)))
+        assert torch.equal(view, torch.as_tensor(np.array(src)))
     assert torch.equal(buffers[torch.float64][:24],
                        torch.as_tensor(base.T.reshape(-1)))
 
@@ -119,7 +133,7 @@ def test_python_floats_share_a_signature_and_each_call_uses_its_value():
     assert static[1].shape == () and static[1].dtype == torch.float64
     for leaves, scale in ((leaves1, 0.5), (leaves2, 4.0)):
         for src, dst in zip(leaves, static):
-            dst.copy_(cg._host_tensor(src))
+            cg._stage(src, dst)
         args, kwargs = cg._unflatten(struct, static)
         assert args[2] == 2 and kwargs == {}  # the int stays a value
         out = fn(*args, **kwargs)

@@ -9,7 +9,10 @@ import jax before any test runs.
 
 import ast
 import importlib
+import os
 import pathlib
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -99,6 +102,21 @@ def test_last_slice_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
     assert build_convex_mpc(cfg, device="cpu").initial_qp is not None
+
+
+def test_chip_smoke_fails_at_once_without_a_card():
+    """``python3 chip_smoke.py`` on a machine without a card exits non-zero
+    before any phase: nothing on its standard output, so no ``"ok"``
+    line."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for one without")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
 
 
 def test_every_module_imports_without_a_compiler_or_a_card():

@@ -12,6 +12,11 @@ The tolerances are the JAX package's executor-against-executor bounds (du/dx
 K2's plain version against ``jax.vmap`` of the JAX scan solver in f32 (the
 fleet kernel's interpret mode belongs to the JAX package's slow tier), and
 against K1's plain version element by element.
+
+The kernels' SPD inverse runs on one warp up to 32 wide and in the block
+form above (csrc/ipm_riccati.cuh); the plain version's ``spd_inverse_gj`` is
+held to the JAX one on both sides of that width, and a model of the warp
+form's order (``_spd_inverse_rotated``) to ``spd_inverse_gj`` bit for bit.
 """
 
 import jax
@@ -25,7 +30,7 @@ from cheeta_mpc_tpu.ops import ocpqp as jo
 from cheeta_mpc_tpu.ops.pallas_ipm_riccati import pallas_solve_ocp_qp
 from cheeta_mpc_tpu.ops.pallas_riccati import spd_inverse_kernel
 from cheeta_mpc_tpu.ops.riccati import solve_eq_lqr as j_solve_eq_lqr
-from cheeta_mpc_tpu_torch.core.types import tree_map
+from cheeta_mpc_tpu_torch.core.types import symmetrize, tree_map
 from cheeta_mpc_tpu_torch.ops import cuda_ipm_batch as tb
 from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as tk
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
@@ -34,6 +39,7 @@ from tests.problem_gen import (add_random_constraints, random_lq_problem,
 from tests.torch_port_util import max_err, qp_data_to_torch
 
 ITERS = 20
+WIDE = "nu36"  # a QP whose G (36 wide) K1 inverts in the block form
 
 
 def _to_f32(data):
@@ -50,14 +56,20 @@ def _ineq_instances(seed=31, count=3):
     return out
 
 
-def _eq_instances(seed=41, count=3):
+def _eq_instances(seed=41, count=3, nu=4):
+    """Masked stage equalities and inequality rows around the equality
+    solution. A wider input shrinks its couplings (B and the equalities'
+    D) with the square root of its width, so that the QP is conditioned
+    like the narrow ones (as chip_smoke.py's ``random_qp``)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(count):
-        N, nx, nu, nc = 8, 5, 4, 2
+        N, nx, nc = 8, 5, 2
+        wu = np.sqrt(4 / nu)
         data = random_lq_problem(rng, N=N, nx=nx, nu=nu)
+        data = data.replace(dyn=data.dyn.replace(B=data.dyn.B * wu))
         Ceq = rng.normal(size=(N, nc, nx))
-        Deq = rng.normal(size=(N, nc, nu)) + 1.5 * np.eye(nc, nu)[None]
+        Deq = wu * rng.normal(size=(N, nc, nu)) + 1.5 * np.eye(nc, nu)[None]
         e = rng.normal(size=(N, nc)) * 0.1
         mask = (rng.uniform(size=(N, nc)) < 0.7).astype(np.float64)
         eq = StageEquality(C=jnp.asarray(Ceq * mask[:, :, None]),
@@ -96,9 +108,14 @@ def test_k1_plain_matches_pallas_kernel(trial):
     _against_pallas(_ineq_instances()[trial], trial)
 
 
-@pytest.mark.parametrize("trial", [0, 1, 2])
+@pytest.mark.parametrize("trial", [0, 1, 2, WIDE])
 def test_k1_plain_matches_pallas_kernel_with_equalities(trial):
-    data = _eq_instances()[trial]
+    """Case ``WIDE``: nu = 36, past one warp's tableau, where K1 inverts G
+    in the block form. (Without the equalities no f32 reference holds:
+    the Pallas kernel in interpret mode returns NaN on most seeds of such a
+    QP, and the JAX scan solver in f32 parts from both by 3-4.5 in du.)"""
+    data = (_eq_instances(count=1, nu=36)[0] if trial == WIDE
+            else _eq_instances()[trial])
     sol = _against_pallas(data, trial)
     eq = data.eq
     r_eq = (np.einsum('kij,kj->ki', np.asarray(eq.C), sol.dx[:-1].numpy())
@@ -157,11 +174,12 @@ def _pallas_spd_inverse(M):
         interpret=True)(jnp.asarray(M)))
 
 
-@pytest.mark.parametrize("n", [16, 24])
+@pytest.mark.parametrize("n", [16, 24, 33, 40, 48])
 def test_gauss_jordan_inverse_at_barrier_conditioning_f64(n):
     """The compact-tableau elimination (the kernels' register layout) in f64
     against ``np.linalg.inv`` at cond ~1e6 (nc = 16 and nu = 24 of the
-    legged and centroidal shapes): 4e-15 measured, 1e-12 allowed."""
+    legged and centroidal shapes, and widths of the block form): 4e-15
+    measured, 1e-12 allowed."""
     M, d = _barrier_like_spd(n)
     assert np.linalg.cond(M) > 5e5
     got = tk.spd_inverse_gj(torch.as_tensor(M)).numpy()
@@ -170,7 +188,7 @@ def test_gauss_jordan_inverse_at_barrier_conditioning_f64(n):
     assert err <= 1e-12
 
 
-@pytest.mark.parametrize("n", [16, 24])
+@pytest.mark.parametrize("n", [16, 24, 33, 40])
 def test_gauss_jordan_inverse_matches_pallas_interpret_at_barrier_conditioning(
         n):
     """The same in f32 against the Pallas kernel's ``spd_inverse_kernel`` run
@@ -201,6 +219,48 @@ def _sparse_g(n):
     return M
 
 
+def _spd_inverse_rotated(M: torch.Tensor) -> torch.Tensor:
+    """``spd_inverse_gj`` in the order of the kernels' one-warp form
+    (csrc/ipm_riccati.cuh::warp_spd_inverse), for n <= WARP_INVERSE_MAX:
+    the tableau padded with zeros to the instantiation's width k (n itself
+    at the widths of WARP_INVERSE_EXACT, else 32), lane c holding column c,
+    the rows rotated so that row 0 of the register file is always the
+    pivot row. At each pivot the column comes from lane j, the one-hot
+    shift falls on its first entry alone, lane c != j takes the pivot row
+    times the pivot's reciprocal, lane j the reciprocal itself over e_j,
+    and the rows move down by one as they are formed. Every entry of the
+    first n rows and lanes sees the operations of ``spd_inverse_gj`` in
+    the same order, so the two agree bit for bit; the padding stays zero.
+    Like ``spd_inverse_gj`` it rounds each update's product and difference
+    separately, where the kernels fuse them into one multiply-add."""
+    n = M.shape[-1]
+    if n == 0:
+        return M
+    if n > tk.WARP_INVERSE_MAX:
+        raise ValueError(f"n={n}: the one-warp form takes n <= "
+                         f"{tk.WARP_INVERSE_MAX}")
+    k = n if n in tk.WARP_INVERSE_EXACT else tk.WARP_INVERSE_MAX
+    M = symmetrize(M)
+    s = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1),
+                                min=1e-30))
+    U = M.new_zeros(M.shape[:-2] + (k, k))  # (..., row slot t, lane c)
+    U[..., :n, :n] = s[..., :, None] * M * s[..., None, :]
+    lane_j = torch.eye(k, dtype=torch.bool, device=M.device)
+    first = torch.zeros(k, 1, dtype=M.dtype, device=M.device)
+    first[0] = 1.0  # the pivot row's place, and e_j in lane j
+    for j in range(n):
+        mine = lane_j[j]  # (k,): lane j
+        ci = U[..., :, j:j + 1]  # lane j's registers: the pivot column
+        ipiv = 1.0 / ci[..., :1, :]
+        rv = torch.where(mine, ipiv, U[..., :1, :] * ipiv)
+        base = torch.where(mine, first, U)
+        U = base - (ci - first) * rv
+        U = torch.cat([U[..., 1:, :], U[..., :1, :]], dim=-2)
+    # Slot t holds row (t + n) mod k; put row i back in slot i.
+    U = torch.roll(U, n, dims=-2)[..., :n, :n]
+    return s[..., :, None] * U * s[..., None, :]
+
+
 @pytest.mark.parametrize("kind", ["barrier", "sparse"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 12, 16, 24, 32])
@@ -220,11 +280,11 @@ def test_rotated_warp_order_equals_the_compact_inverse_bit_for_bit(n, dtype,
     if kind == "sparse" and n > 2:
         assert int((M == 0).sum()) > n
     ints = torch.int32 if dtype == torch.float32 else torch.int64
-    ref, got = tk.spd_inverse_gj(M), tk.spd_inverse_rotated(M)
+    ref, got = tk.spd_inverse_gj(M), _spd_inverse_rotated(M)
     assert torch.equal(got.view(ints), ref.view(ints))
     assert bool(torch.isfinite(got).all())
     Mb = torch.stack([M, 2.0 * M, M + torch.eye(n, dtype=dtype)])
-    gotb, refb = tk.spd_inverse_rotated(Mb), tk.spd_inverse_gj(Mb)
+    gotb, refb = _spd_inverse_rotated(Mb), tk.spd_inverse_gj(Mb)
     assert torch.equal(gotb.view(ints), refb.view(ints))
 
 
@@ -233,7 +293,7 @@ def test_rotated_warp_order_refuses_widths_past_the_warp():
     ``spd_inverse_gj`` is; the warp form's model refuses such a width."""
     M = torch.eye(tk.WARP_INVERSE_MAX + 1, dtype=torch.float64)
     with pytest.raises(ValueError, match="one-warp form"):
-        tk.spd_inverse_rotated(M)
+        _spd_inverse_rotated(M)
     assert torch.equal(tk.spd_inverse_gj(M), M)
 
 
