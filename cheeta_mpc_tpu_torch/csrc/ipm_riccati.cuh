@@ -35,11 +35,19 @@
 //   needed instead of forming it in a phase of its own; the corrector's
 //   right-hand sides are recomputed where they are read.
 // - Products run on register tiles, independent products of a phase side
-//   by side on disjoint threads; the small products of the equality
-//   elimination one output per thread. Without equalities P's products
+//   by side on disjoint threads. Without equalities P's products
 //   (C' W C + A' P A, then H' K) are computed only on and above the
-//   diagonal and stored mirrored, so P needs no symmetrization phase; with
-//   them the elimination adds terms and P is symmetrized after it.
+//   diagonal and stored mirrored, so P needs no symmetrization phase.
+// - The equality elimination's small products take one output per thread,
+//   reassociated around Z = G^-1 H and T = Ce - Y'H so that G's inverse is
+//   followed by four barrier phases: Y and Z; Lam; Y Lam^-1 and Lam^-1 T;
+//   then W, K = -(Z + Y Lam^-1 T) and P_k = sym(Qb + A'PA - H'Z
+//   + T' Lam^-1 T), each pair (i, j), (j, i) of P summed by one thread and
+//   stored as its mean. T and H'Z are formed by the warps that do not
+//   share warp 0's scheduler while warp 0 inverts Lam. Z borrows PA's
+//   buffer (running on into PB's where nu > nx), and Y is kept transposed
+//   so that W reads it along rows; the stored factors are those the sweeps
+//   always read. The next stage's copies go out after G's inverse.
 // - Code size counts: the kernel is one long sequence of different phases,
 //   so code that is fetched once per stage (an unrolled elimination, say)
 //   evicts the products' code from the instruction cache.
@@ -660,7 +668,8 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
     for (int k = N - 1; k >= 0; --k) {
       const int sidx = N - 1 - k;
       const float* st = slot_of(sidx);
-      if (k > 0) fac_issue(k - 1, slot_of(sidx + 1));
+      // With equalities the next stage's copies go out after G's inverse.
+      if (nc == 0 && k > 0) fac_issue(k - 1, slot_of(sidx + 1));
       const float *Ak = st, *Bk = st + nx * nx, *Ck = st + ab,
                   *Dk = Ck + ng * nx, *Cek = Dk + ng * nu,
                   *Dek = Cek + nc * nx;
@@ -776,105 +785,141 @@ static __device__ void ipm_solve(const IpmArgs& a, float* smem) {
             [&](int l, int j) { return Ks[l * nx + j]; },
             [&](int i, int j, float v) { Pk[i * nx + j] = v; });
       } else {
-        // The equality elimination: small products (nc rows), one output
-        // per thread, every operand in shared memory.
+        // The equality elimination, reassociated around Z = G^-1 H and
+        // T = Ce - Y'H (W = G^-1 - YLi Y', T2 = Li T): K = -(W H + YLi Ce)
+        // = -(Z + YLi T) and H'K + Ce'T2 = -H'Z + T'T2. Small products (nc
+        // rows), one output per thread, every operand in shared memory;
+        // four barrier phases (E1, E2, E4, E5), and T and H'Z beside Lam's
+        // inverse (E3). Y is kept transposed (Yt = Y', nc x nu), so that
+        // W's sum reads it along rows. Z takes PA's buffer, running on into
+        // PB's where nu > nx: both are dead until the next stage's PA.
         float* YLik = fYLi + (size_t)k * nu * nc;
         float* Lik = fLi + (size_t)k * nc * nc;
         float* YLis = kFacShared ? YLik : YLiw;
         float* Lis = kFacShared ? Lik : Liw;
         float* Ws = kFacShared ? Gik : Ww;
+        float *Yt = Y, *Z = PA;
         spd_inverse(s, G, Gt, nu, sv, rowb, colb);
         clk.mark(kPhInverse);
-        for (int idx = tid; idx < nu * nc; idx += nt) {  // Y = G^-1 De'
-          const int i = idx / nc, r = idx % nc;
-          float acc = 0.f;
-          for (int l = 0; l < nu; ++l)
-            acc = fmaf(Gt[i * nu + l], Dek[r * nu + l], acc);
-          Y[idx] = acc;
+        // Issued here, not at the stage's start: with this schedule that
+        // measured faster (PERF.md, section 6).
+        if (k > 0) fac_issue(k - 1, slot_of(sidx + 1));
+        // E1: Y = G^-1 De' ; Z = G^-1 H
+        for (int idx = tid; idx < nu * nc + nu * nx; idx += nt) {
+          if (idx < nu * nc) {
+            const int i = idx / nc, r = idx % nc;
+            float acc = 0.f;
+            for (int l = 0; l < nu; ++l)
+              acc = fmaf(Gt[i * nu + l], Dek[r * nu + l], acc);
+            Yt[r * nu + i] = acc;
+          } else {
+            const int e = idx - nu * nc, i = e / nx, j = e % nx;
+            float acc = 0.f;
+            for (int l = 0; l < nu; ++l)
+              acc = fmaf(Gt[i * nu + l], Hs[l * nx + j], acc);
+            Z[e] = acc;
+          }
         }
         __syncthreads();
         clk.mark(kPhProducts);
-        for (int idx = tid; idx < nc * nc; idx += nt) {  // Lam = De Y + E
+        // E2: Lam = De Y + E
+        for (int idx = tid; idx < nc * nc; idx += nt) {
           const int r = idx / nc, c = idx % nc;
           float acc = r == c ? pa.eps * (1.f - gme[k * nc + r]) : 0.f;
           for (int l = 0; l < nu; ++l)
-            acc = fmaf(Dek[r * nu + l], Y[l * nc + c], acc);
+            acc = fmaf(Dek[r * nu + l], Yt[c * nu + l], acc);
           Lam[idx] = acc;
           if (r == c) sv[r] = inv_scale(acc);
         }
         __syncthreads();
         clk.mark(kPhProducts);
-        spd_inverse(s, Lam, Lis, nc, sv, rowb, colb);
+        // E3: Lam^-1, by warp 0 where the warp form takes it, and beside
+        // it T = Ce - Y'H and Pk <- Pk - H'Z (Qb + A'PA - H'Z) by the warps
+        // that do not share warp 0's scheduler (warp w issues on scheduler
+        // w % 4); else the block inverts Lam and then takes T and H'Z.
+        const bool beside = warp_inverse_takes(nc) && nt > 32;
+        if (!beside) spd_inverse(s, Lam, Lis, nc, sv, rowb, colb);
+        if (beside && (tid >> 5) % 4 == 0) {
+          if (tid < 32)
+            warp_spd_inverse_n((int)(Lam - s), (int)(Lis - s), (int)(sv - s),
+                               nc);
+        } else {
+          const int w = tid >> 5, nw = nt >> 5;
+          const int t0 = beside ? (w - 1 - w / 4) * 32 + (tid & 31) : tid;
+          const int nth = beside ? (nw - (nw + 3) / 4) * 32 : nt;
+          for (int idx = t0; idx < nx * nx + nc * nx; idx += nth) {
+            if (idx < nx * nx) {
+              const int i = idx / nx, j = idx % nx;
+              float acc = Pk[idx];
+              for (int l = 0; l < nu; ++l)
+                acc = fmaf(-Hs[l * nx + i], Z[l * nx + j], acc);
+              Pk[idx] = acc;
+            } else {
+              const int e = idx - nx * nx, r = e / nx, j = e % nx;
+              float acc = 0.f;
+              for (int l = 0; l < nu; ++l)
+                acc = fmaf(Yt[r * nu + l], Hs[l * nx + j], acc);
+              T[e] = Cek[e] - acc;
+            }
+          }
+        }
+        __syncthreads();  // E4 reads T
         clk.mark(kPhInverse);
-        // YLi = Y Li ; T = Ce - Y' H
+        // E4: YLi = Y Li ; T2 = Li T
         for (int idx = tid; idx < nu * nc + nc * nx; idx += nt) {
           if (idx < nu * nc) {
             const int i = idx / nc, r = idx % nc;
             float acc = 0.f;
             for (int l = 0; l < nc; ++l)
-              acc = fmaf(Y[i * nc + l], Lis[l * nc + r], acc);
+              acc = fmaf(Yt[l * nu + i], Lis[l * nc + r], acc);
             YLis[idx] = acc;
             if (!kFacShared) YLik[idx] = acc;
           } else {
             const int e = idx - nu * nc, r = e / nx, j = e % nx;
-            float acc = 0.f;
-            for (int l = 0; l < nu; ++l)
-              acc = fmaf(Y[l * nc + r], Hs[l * nx + j], acc);
-            T[e] = Cek[e] - acc;
-          }
-        }
-        if (!kFacShared)
-          for (int i = tid; i < nc * nc; i += nt) Lik[i] = Lis[i];
-        __syncthreads();
-        clk.mark(kPhProducts);
-        // W = G^-1 - YLi Y' ; T2 = Li T
-        for (int idx = tid; idx < nu * nu + nc * nx; idx += nt) {
-          if (idx < nu * nu) {
-            const int i = idx / nu, j = idx % nu;
-            float acc = 0.f;
-            for (int r = 0; r < nc; ++r)
-              acc = fmaf(YLis[i * nc + r], Y[j * nc + r], acc);
-            const float wv = Gt[idx] - acc;
-            Ws[idx] = wv;
-            if (!kFacShared) Gik[idx] = wv;
-          } else {
-            const int e = idx - nu * nu, r = e / nx, j = e % nx;
             float acc = 0.f;
             for (int c = 0; c < nc; ++c)
               acc = fmaf(Lis[r * nc + c], T[c * nx + j], acc);
             T2[e] = acc;
           }
         }
+        if (!kFacShared)
+          for (int i = tid; i < nc * nc; i += nt) Lik[i] = Lis[i];
         __syncthreads();
         clk.mark(kPhProducts);
-        for (int idx = tid; idx < nu * nx; idx += nt) {  // K = -(W H + YLi Ce)
-          const int i = idx / nx, j = idx % nx;
-          float acc = 0.f;
-          for (int l = 0; l < nu; ++l)
-            acc = fmaf(Ws[i * nu + l], Hs[l * nx + j], acc);
-          for (int r = 0; r < nc; ++r)
-            acc = fmaf(YLis[i * nc + r], Cek[r * nx + j], acc);
-          Ks[idx] = -acc;
-          if (!kFacShared) Kk[idx] = -acc;
-        }
-        __syncthreads();
-        clk.mark(kPhProducts);
-        for (int idx = tid; idx < nx * nx; idx += nt) {  // Pk += H'K + Ce'T2
-          const int i = idx / nx, j = idx % nx;
-          float acc = Pk[idx];
-          for (int l = 0; l < nu; ++l)
-            acc = fmaf(Hs[l * nx + i], Ks[l * nx + j], acc);
-          for (int r = 0; r < nc; ++r)
-            acc = fmaf(Cek[r * nx + i], T2[r * nx + j], acc);
-          Pk[idx] = acc;
-        }
-        __syncthreads();
-        clk.mark(kPhProducts);
-        for (int idx = tid; idx < nx * nx; idx += nt) {  // Pk <- sym(Pk)
-          const int i = idx / nx, j = idx % nx;
-          if (i < j) {
-            const float v = 0.5f * (Pk[idx] + Pk[j * nx + i]);
-            Pk[idx] = v;
+        // E5: W = G^-1 - YLi Y' ; K = -(Z + YLi T) ; Pk <- sym(Pk + T'T2),
+        // symmetric as stored: the pair (i, j), (j, i) of i <= j in one
+        // thread, both sums side by side, their mean stored at both places.
+        // Pairs come two rows at a time, rows a and nx - 1 - a (nx + 1
+        // pairs), so a warp reads neighbouring columns.
+        const int npair = nx * (nx + 1) / 2;
+        for (int idx = tid; idx < nu * nu + nu * nx + npair; idx += nt) {
+          if (idx < nu * nu) {
+            const int i = idx / nu, j = idx % nu;
+            float acc = 0.f;
+            for (int r = 0; r < nc; ++r)
+              acc = fmaf(YLis[i * nc + r], Yt[r * nu + j], acc);
+            const float wv = Gt[idx] - acc;
+            Ws[idx] = wv;
+            if (!kFacShared) Gik[idx] = wv;
+          } else if (idx < nu * nu + nu * nx) {
+            const int e = idx - nu * nu, i = e / nx, j = e % nx;
+            float acc = Z[e];
+            for (int r = 0; r < nc; ++r)
+              acc = fmaf(YLis[i * nc + r], T[r * nx + j], acc);
+            Ks[e] = -acc;
+            if (!kFacShared) Kk[e] = -acc;
+          } else {
+            const int q = idx - nu * nu - nu * nx, a = q / (nx + 1),
+                      c = q % (nx + 1);
+            const bool lo = c < nx - a;
+            const int i = lo ? a : nx - 1 - a, j = lo ? a + c : c - 1;
+            float vij = Pk[i * nx + j], vji = Pk[j * nx + i];
+            for (int r = 0; r < nc; ++r) {
+              vij = fmaf(T[r * nx + i], T2[r * nx + j], vij);
+              vji = fmaf(T[r * nx + j], T2[r * nx + i], vji);
+            }
+            const float v = 0.5f * (vij + vji);
+            Pk[i * nx + j] = v;
             Pk[j * nx + i] = v;
           }
         }
