@@ -19,7 +19,12 @@ What differs from the JAX package:
   the pyramid matrices C/D are built once per config without a batch
   dimension, so the fleet kernel reads one copy for the whole batch;
 - the solver is one CUDA graph per call signature
-  (``utils.cuda_graph.graphed``), the counterpart of ``jax.jit``.
+  (``utils.cuda_graph.graphed``), the counterpart of ``jax.jit``;
+- the solve marks two stages (``utils.timing.stage``): ``convex.linearize``
+  (the SRB step linearized about the commanded yaw, the cost and the
+  pyramid rows) and ``convex.qp`` (the interior-point solve), timed inside
+  the replayed graph, or profiler ranges of the same names in an eager
+  solve under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from cheeta_mpc_tpu_torch.ops.cuda_ipm_batch import make_fleet_qp_solver
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
 from cheeta_mpc_tpu_torch.ops.riccati import bmv
 from cheeta_mpc_tpu_torch.utils.cuda_graph import graphed
+from cheeta_mpc_tpu_torch.utils.timing import stage
 
 
 class ConvexMpcConfig(NamedTuple):
@@ -146,8 +152,10 @@ def build_convex_mpc(cfg: ConvexMpcConfig,
                          dx0=dx0)
 
     def solve(x0, x_ref_traj, foot_pos, enable_table):
-        data = initial_qp(x0, x_ref_traj, foot_pos, enable_table)
-        sol = qp_solve(data)
+        with stage("convex.linearize"):
+            data = initial_qp(x0, x_ref_traj, foot_pos, enable_table)
+        with stage("convex.qp"):
+            sol = qp_solve(data)
         enable = torch.as_tensor(enable_table, **kw)
         forces = (sol.du.reshape(sol.du.shape[:-1] + (nl, 3))
                   * enable[..., None])  # swing legs exactly zero

@@ -1165,14 +1165,12 @@ def phase_convex_mpc(kit):
             "cheeta_ipm_riccati_single"
         row["occupancy"] = kit.single_mod.launch_occupancy(entry, qp, ipm)
         rows["k1" if batch == 1 else "k2"] = row
-    # Graphed solve times on the trot scenario.
+    # Graphed host ms on the trot scenario, which device_timing's gate
+    # reads (the speed of these paths is the convex_srb cells').
     for batch in (1, CONVEX_FLEET):
         args = inputs["trot", batch]
-        wall = wall_spread(lambda: solve(*args)[0].cpu())
-        report[f"trot_batch{batch}"].update({
-            "graphed_ms": wall, "solves_per_s": 1e3 * batch / wall["p50"],
-            "p50_within_20ms": wall["p50"] <= BUDGET_MS,
-            "p99_within_30ms": wall["p99"] <= BUDGET_P99_MS})
+        report[f"trot_batch{batch}"]["graphed_ms"] = wall_spread(
+            lambda: solve(*args)[0].cpu())
     report["kernels"] = rows
     return report, (cfg, ipm), solve
 

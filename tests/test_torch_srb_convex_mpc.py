@@ -12,11 +12,14 @@ with the f32 convergence freeze lowered so that f32 runs the iterations f64
 runs.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cheeta_mpc_tpu.examples import NOMINAL_FEET, trot_table
 from cheeta_mpc_tpu.models import srb as jsrb
@@ -29,6 +32,7 @@ from cheeta_mpc_tpu_torch.mpc import convex_mpc as tc
 from cheeta_mpc_tpu_torch.ops import cuda_ipm_batch as tb
 from cheeta_mpc_tpu_torch.ops import cuda_ipm_riccati as tk
 from cheeta_mpc_tpu_torch.ops.ocpqp import IpmSettings
+from cheeta_mpc_tpu_torch.utils import timing
 from tests.torch_port_util import max_err
 
 PARAMS = jsrb.SrbParams(mass=9.0, inertia=(0.07, 0.26, 0.24), mu=0.5,
@@ -269,3 +273,38 @@ def test_entry_point_defaults_to_the_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tc.build_convex_mpc(_port_config())
+
+
+STAGES = ("convex.linearize", "convex.qp")
+
+
+@pytest.mark.parametrize("batch", [None, 3], ids=["batch1", "batch3"])
+def test_solve_marks_its_two_stages(batch, monkeypatch):
+    """Under ``torch.profiler`` on the CPU the solve opens
+    ``convex.linearize`` then ``convex.qp``, once each; its forces and
+    iterate are bit for bit those of the same solve with the marks taken
+    out, and without a profiler no range is opened."""
+    x0 = nominal_state()
+    x0[3:5] = (0.02, -0.01)
+    args = (x0 if batch is None else np.tile(x0, (batch, 1)),
+            standing_reference(nominal_state()), NOMINAL_FEET,
+            trot_table(N, phase=2))
+    solve = tc.build_convex_mpc(_port_config(), IpmSettings(iters=6),
+                                device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        marked, msol = solve(*args)
+    seen = sorted((e.time_range.start, e.name) for e in prof.events()
+                  if e.name in STAGES)
+    assert [name for _, name in seen] == list(STAGES)
+
+    def no_range(*a, **kw):
+        raise AssertionError("a range was opened without a profiler")
+
+    monkeypatch.setattr(timing, "record_function", no_range)
+    quiet, _ = solve(*args)
+    monkeypatch.setattr(tc, "stage", lambda name: contextlib.nullcontext())
+    unmarked, usol = tc.build_convex_mpc(
+        _port_config(), IpmSettings(iters=6), device="cpu")(*args)
+    for a, b in ((marked, unmarked), (quiet, unmarked), (msol.dx, usol.dx),
+                 (msol.du, usol.du)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
